@@ -1,0 +1,240 @@
+"""Settings completion: fill a user settings dict with schema defaults.
+
+Preserves the declarative settings contract of the reference
+(splink/settings.py:171-231): the same keys, the same default
+m/u priors, the same gamma_index assignment and the same normalisation of
+probability lists. The difference is the comparison representation — instead
+of SQL CASE strings the completed settings carry a JSON-serialisable
+``comparison`` spec dict which gammas.py evaluates as batched tensor ops
+(see ops/gamma.py).
+"""
+
+from __future__ import annotations
+
+import copy
+import warnings
+
+from .compat_sql import SqlTranslationError, parse_case_expression
+from .validate import get_default_value, validate_settings
+
+# Default m/u priors, identical to the reference's
+# (splink/settings.py:108-111): m puts most mass on the top
+# (most similar) level, u mirrors it onto the bottom level.
+_DEFAULT_M_U = {
+    "m": {2: [1, 9], 3: [1, 2, 7], 4: [1, 1, 1, 7]},
+    "u": {2: [9, 1], 3: [7, 2, 1], 4: [7, 1, 1, 1]},
+}
+
+# Default comparison kernel per (data_type, num_levels). Thresholds follow the
+# fastLink paper values used by the reference (jaro-winkler 0.94/0.88/0.7 from
+# splink/case_statements.py:81-113; numeric relative-difference
+# thresholds from :211-246). thresholds[0] gates the top similarity level.
+_DEFAULT_COMPARISONS = {
+    ("string", 2): {"kind": "jaro_winkler", "thresholds": [0.94]},
+    ("string", 3): {"kind": "jaro_winkler", "thresholds": [0.94, 0.88]},
+    ("string", 4): {"kind": "jaro_winkler", "thresholds": [0.94, 0.88, 0.7]},
+    ("numeric", 2): {"kind": "numeric_abs", "thresholds": [0.00001]},
+    ("numeric", 3): {"kind": "numeric_perc", "thresholds": [0.0001, 0.05]},
+    # NOTE: the reference maps (numeric, 4) to its *3-level* percentage
+    # generator (splink/settings.py:42), so its top level can
+    # never be observed. We use a true 4-level spec instead.
+    ("numeric", 4): {"kind": "numeric_perc", "thresholds": [0.0001, 0.05, 0.10]},
+}
+
+_NON_COLUMN_DEFAULT_KEYS = [
+    "em_convergence",
+    "unique_id_column_name",
+    "additional_columns_to_retain",
+    "retain_matching_columns",
+    "retain_intermediate_calculation_columns",
+    "max_iterations",
+    "proportion_of_matches",
+    "backend",
+    "mesh",
+    "pair_batch_size",
+    "max_resident_pairs",
+    "device_blocking",
+    "blocking_chunk_pairs",
+    "approx_blocking",
+    "approx_q",
+    "approx_bands",
+    "approx_rows_per_band",
+    "approx_threshold",
+    "approx_pair_budget",
+    "approx_tf_weighting",
+    "spill_dir",
+    "build_spill_dir",
+    "build_spill_chunk_rows",
+    "emit_shard_chunks",
+    "profile_dir",
+    "telemetry_dir",
+    "telemetry_memory",
+    # NOTE: compilation_cache_dir is deliberately NOT auto-filled:
+    # completion mutates the caller's dict in place, so auto-filling
+    # would make a reused settings dict look explicitly configured on
+    # the second Splink() construction. The linker resolves the schema
+    # default lazily instead (the cache is on for every backend; the
+    # CPU tier keys entries by target-feature fingerprint — see
+    # linker._enable_compilation_cache).
+    "float64",
+    "checkpoint_dir",
+    "checkpoint_interval",
+    "fault_plan",
+    "serve_query_buckets",
+    "serve_candidate_buckets",
+    "serve_queue_depth",
+    "serve_deadline_ms",
+    "serve_top_k",
+    "serve_brownout_top_k",
+    "serve_breaker_threshold",
+    "serve_hedge_ms",
+    "serve_probe_queries",
+    "serve_fused",
+    "serve_tf_adjust",
+    "serve_trace_sample_rate",
+    "obs_exposition_port",
+    "obs_flight_records",
+    "wire_port",
+    "wire_connect_timeout_ms",
+    "wire_max_frame_bytes",
+    "wire_max_connections",
+    "wire_remote_hosts",
+    "fleet_stitching",
+    "fleet_net_alert_ratio",
+    "fleet_bundle_dir",
+    "fleet_incident_interval_s",
+    "quality_profile",
+    "drift_sketch_bins",
+    "drift_window_s",
+    "drift_alert_psi",
+    "perf_alert_ratio",
+    "perf_window_s",
+]
+
+
+def normalise_prob_list(probs: list) -> list:
+    total = sum(probs)
+    if total <= 0:
+        raise ValueError(
+            f"m/u probability list must have a positive sum, got {probs!r}"
+        )
+    return [p / total for p in probs]
+
+
+def comparison_column_name(col_settings: dict) -> str:
+    """The display/gamma name of a comparison column (col_name or custom_name)."""
+    return col_settings["custom_name"] if "custom_name" in col_settings else col_settings["col_name"]
+
+
+def _default_comparison(data_type: str, levels: int) -> dict:
+    if data_type not in ("string", "numeric"):
+        raise ValueError(
+            f"No default comparison for data_type {data_type!r}; supply a "
+            "'comparison' spec for this column"
+        )
+    if levels > 4:
+        raise ValueError(
+            "No default comparison when num_levels > 4; supply a 'comparison' "
+            "spec for this column"
+        )
+    return copy.deepcopy(_DEFAULT_COMPARISONS[(data_type, levels)])
+
+
+def _default_probabilities(m_or_u: str, levels: int) -> list:
+    if levels > 4:
+        raise ValueError(
+            "No default m/u probabilities when num_levels > 4; supply "
+            "'m_probabilities' and 'u_probabilities' for this column"
+        )
+    return normalise_prob_list(_DEFAULT_M_U[m_or_u][levels])
+
+
+def _complete_comparison(col_settings: dict) -> None:
+    levels = col_settings["num_levels"]
+    if "comparison" in col_settings:
+        spec = col_settings["comparison"]
+        if "kind" not in spec:
+            raise ValueError(f"comparison spec {spec!r} is missing 'kind'")
+    elif "case_expression" in col_settings:
+        # Reference-splink compatibility: fast-path the CASE shapes the
+        # reference's generators emit onto native kernels; anything else
+        # needs the general CASE compiler, not ported yet (raises).
+        try:
+            col_settings["comparison"] = parse_case_expression(
+                col_settings["case_expression"], levels
+            )
+            # A numeric CASE shape implies the column is numeric even if
+            # data_type was left at the 'string' default.
+            if col_settings["comparison"]["kind"] in ("numeric_abs", "numeric_perc"):
+                col_settings["data_type"] = "numeric"
+        except SqlTranslationError as fast_err:
+            col_settings["comparison"] = _general_case_spec(
+                col_settings, levels, fast_err
+            )
+    else:
+        col_settings["comparison"] = _default_comparison(
+            col_settings["data_type"], levels
+        )
+
+
+def _general_case_spec(col_settings: dict, levels: int, fast_err) -> dict:
+    """A hand-written CASE expression the shape-translator doesn't recognise
+    needs the general CASE compiler, which this package does not have yet."""
+    raise NotImplementedError(
+        "case_expression needs the general CASE compiler (ROADMAP.md, "
+        "'case_compiler'), which splink_tpu_torch does not port yet; the "
+        f"shape translator said: {fast_err}"
+    )
+
+
+def _complete_probabilities(col_settings: dict, key: str) -> None:
+    levels = col_settings["num_levels"]
+    if key not in col_settings:
+        col_settings[key] = _default_probabilities(key[0], levels)
+    elif len(col_settings[key]) != levels:
+        raise ValueError(
+            f"Number of {key} provided is not equal to the number of levels specified"
+        )
+    col_settings[key] = normalise_prob_list(col_settings[key])
+
+
+def complete_settings_dict(settings_dict: dict) -> dict:
+    """Validate and fill every missing setting from the schema defaults.
+
+    Returns the same (mutated) dict, matching the reference's in-place
+    behaviour so callers can hold a reference to it.
+    """
+    validate_settings(settings_dict)
+
+    for key in _NON_COLUMN_DEFAULT_KEYS:
+        if key not in settings_dict:
+            settings_dict[key] = get_default_value(key, is_column_setting=False)
+
+    if "blocking_rules" in settings_dict and len(settings_dict["blocking_rules"]) == 0:
+        warnings.warn(
+            "You have not specified any blocking rules: every pairwise "
+            "comparison between the input dataset(s) will be generated. For "
+            "large inputs this is quadratic in the number of rows and will "
+            "generally be intractable."
+        )
+
+    names = [comparison_column_name(c) for c in settings_dict["comparison_columns"]]
+    dupes = {n for n in names if names.count(n) > 1}
+    if dupes:
+        raise ValueError(
+            f"Duplicate comparison column name(s) {sorted(dupes)}: each "
+            "comparison needs a distinct name. To compare the same input "
+            "column twice, give the second comparison a 'custom_name' and "
+            "'custom_columns_used'."
+        )
+
+    for gamma_index, col_settings in enumerate(settings_dict["comparison_columns"]):
+        col_settings["gamma_index"] = gamma_index
+        for key in ("num_levels", "data_type", "term_frequency_adjustments"):
+            if key not in col_settings:
+                col_settings[key] = get_default_value(key, is_column_setting=True)
+        _complete_comparison(col_settings)
+        _complete_probabilities(col_settings, "m_probabilities")
+        _complete_probabilities(col_settings, "u_probabilities")
+
+    return settings_dict
