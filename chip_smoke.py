@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA string kernels from splink_tpu_torch/csrc,
-holds each against its plain PyTorch version on the card, drives the
-resident train-and-score path at full size through the public entry point
-(1,000,000 seeded rows, ~16M candidate pairs, two Jaro-Winkler columns, one
+holds each against its plain PyTorch version on the card at every variant's
+widths (8 to 264, uint8 and 32-bit codepoints), drives the resident
+train-and-score path at full size through the public entry point (1,000,000
+seeded rows, ~16M candidate pairs, two Jaro-Winkler columns, one
 Levenshtein, one numeric, one exact), checks the output, runs a 20,000-row
-subset on the card and on the CPU for parity, and round-trips the model
-through JSON. Every phase prints one JSON line; any failed check raises.
-The last lines are the kernel table, the card's name and power limit as
-nvidia-smi reports them, and {"ok": true, "device": {...}}.
+subset on the card and on the CPU for parity, runs columns of
+max_string_length 64 on the card and on the CPU (the multi-word kernel
+variants), and round-trips the model through JSON. Every phase prints one
+JSON line; any failed check raises. The last lines are the kernel table,
+the card's name and power limit as nvidia-smi reports them, and
+{"ok": true, "device": {...}}.
 
 Imports nothing of JAX or splink_tpu. Exits non-zero without printing a
 result when no CUDA device is available.
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,7 +35,11 @@ N_ROWS = 1_000_000
 SUBSET_ROWS = 20_000
 SEED = 20261016
 KERNEL_CHECK_PAIRS = 2_000_000
+WIDE_CHECK_PAIRS = 100_000  # past width 32, so that the plain versions fit
+CHECK_WIDTHS = (8, 24, 32, 40, 64, 128, 256, 264)
 TIMING_RUNS = 15
+SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers one call's launch
+L2_FLUSH_BYTES = 256 << 20  # read before each timed run: 5x the H100's 50 MB L2
 
 # H100 SXM peaks (the on-chip measurement table): 3.35 TB/s HBM, 67 TFLOP/s
 # FP32 outside the tensor cores. The table has no integer row: an FP32 FMA
@@ -55,6 +63,21 @@ SETTINGS = {
         {"col_name": "dob", "data_type": "numeric", "num_levels": 2,
          "comparison": {"kind": "numeric_abs", "thresholds": [1.0]}},
         {"col_name": "postcode", "num_levels": 2, "comparison": {"kind": "exact"}},
+    ],
+}
+
+# Long free-text columns: the multi-word kernel variants on the main path's
+# entry points (width 64 = two 32-bit words)
+WIDE_SETTINGS = {
+    "link_type": "dedupe_only",
+    "blocking_rules": ["l.blk = r.blk"],
+    "comparison_columns": [
+        {"col_name": "address", "num_levels": 3, "max_string_length": 64,
+         "comparison": {"kind": "jaro_winkler", "thresholds": [0.94, 0.88]}},
+        {"col_name": "employer", "num_levels": 3, "max_string_length": 64,
+         "comparison": {"kind": "levenshtein", "thresholds": [0.3]}},
+        {"col_name": "dob", "data_type": "numeric", "num_levels": 2,
+         "comparison": {"kind": "numeric_abs", "thresholds": [1.0]}},
     ],
 }
 
@@ -119,6 +142,40 @@ def make_people(n: int, seed: int):
     return pd.DataFrame(cols), dup_of
 
 
+def make_addresses(n: int, seed: int):
+    """Seeded table of long values: ``address`` 20-60 letters and spaces
+    (n // 4 distinct), ``employer`` 10-50 (n // 8), ``dob``; ~10% planted
+    duplicates with a one-character typo in address or employer, ~2% nulls,
+    ``blk`` uniform over n // 32 groups."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    n_dup = n // 10
+    n_base = n - n_dup
+    spaced = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+
+    def pool(k, lo, hi):
+        p = _pool(rng, k, lo - 1, hi - 1, spaced)
+        return np.array([chr(int(LETTERS[rng.integers(0, 26)])) + v for v in p], dtype=object)
+
+    cols = {"address": pool(max(n // 4, 1), 20, 60)[rng.integers(0, max(n // 4, 1), n_base)],
+            "employer": pool(max(n // 8, 1), 10, 50)[rng.integers(0, max(n // 8, 1), n_base)],
+            "dob": rng.integers(0, 30_000, n_base).astype(np.float64),
+            "blk": rng.integers(0, max(n // 32, 1), n_base)}
+    src = rng.integers(0, n_base, n_dup)
+    for k in cols:
+        cols[k] = np.concatenate([cols[k], cols[k][src]])
+    which = rng.integers(0, 2, n_dup)
+    for r in range(n_dup):
+        k = ("address", "employer")[which[r]]
+        cols[k][n_base + r] = _typo(rng, cols[k][n_base + r])
+    for k in ("address", "employer", "dob"):
+        cols[k] = cols[k].astype(object)
+        cols[k][rng.random(n) < 0.02] = None
+    cols["unique_id"] = np.arange(n)
+    return pd.DataFrame(cols)
+
+
 # ----------------------------------------------------------------------
 # Kernel checks and timing
 # ----------------------------------------------------------------------
@@ -165,22 +222,36 @@ def edge_pairs(torch):
 
 
 def check_kernels(torch, strings, strings_cuda, args):
-    """Kernel vs plain version on the same card tensors; raises if they differ."""
+    """Kernel vs plain version on the same card tensors; raises if they
+    differ (Jaro-Winkler: torch.equal on float32; Levenshtein: exact)."""
     jw_k = strings_cuda.jaro_winkler_cuda(*args)
     jw_p = strings.jaro_winkler_plain(*args)
     lev_k = strings_cuda.levenshtein_cuda(*args)
     lev_p = strings.levenshtein_plain(*args)
     torch.cuda.synchronize()
+    shape = f"{tuple(args[0].shape)} {args[0].dtype}"
     if not torch.equal(jw_k, jw_p):
         bad = int((jw_k != jw_p).sum())
-        raise AssertionError(f"jaro_winkler kernel differs from plain on {bad} pairs")
+        raise AssertionError(f"jaro_winkler kernel differs from plain on {bad} pairs at {shape}")
     if not torch.equal(lev_k, lev_p):
         bad = int((lev_k != lev_p).sum())
-        raise AssertionError(f"levenshtein kernel differs from plain on {bad} pairs")
+        raise AssertionError(f"levenshtein kernel differs from plain on {bad} pairs at {shape}")
 
 
-def cuda_ms(torch, fn, runs=TIMING_RUNS, warmup=3):
-    """Median milliseconds of fn() from CUDA events, after warm-up."""
+def cuda_ms(torch, fn, runs=TIMING_RUNS, warmup=3, device_only=True):
+    """Median milliseconds of fn() between two CUDA events, after warm-up.
+
+    device_only: each run starts with a cold L2 (a 256 MB buffer is read
+    first, so fn's inputs come from HBM as the bytes bound assumes), and
+    the stream is held busy (torch.cuda._sleep, about 1 ms) so that the
+    flush, the start event, fn's launches and the stop event are all queued
+    before the card reaches them; the interval is then the card's time for
+    fn's work alone. Otherwise the interval also holds the host's time to
+    make the call (argument checks, allocation, the launch) and the L2
+    keeps what the previous run left, which is how the kernel times before
+    the redesign were taken."""
+    if device_only:
+        flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -188,6 +259,9 @@ def cuda_ms(torch, fn, runs=TIMING_RUNS, warmup=3):
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
+            flush.max()
         start.record()
         fn()
         stop.record()
@@ -196,26 +270,67 @@ def cuda_ms(torch, fn, runs=TIMING_RUNS, warmup=3):
     return float(np.median(times))
 
 
-def jw_ops(torch, l1, l2):
+def jw_ops(torch, s1, l1, l2):
     """Character comparisons of the greedy eligibility scan for these
-    inputs: sum over i < min(l) of the window span clipped to [0, max(l)).
-    A lower bound on the kernel's integer work."""
+    inputs: sum over i < min(l) of the window span clipped to [0, max(l)),
+    at any width. A lower bound on the kernel's integer work."""
     la = torch.minimum(l1, l2).long()
     lb = torch.maximum(l1, l2).long()
     w = torch.clamp(lb // 2 - 1, min=0)
-    i = torch.arange(32, device=l1.device)[None, :]
-    span = torch.clamp(torch.minimum(i + w[:, None] + 1, lb[:, None])
-                       - torch.clamp(i - w[:, None], min=0), min=0)
-    return int(torch.where(i < la[:, None], span, 0).sum())
+    i = torch.arange(s1.shape[1], device=l1.device)[None, :]
+    total = 0
+    for c in range(0, len(la), 1 << 20):  # (rows, width) at a time
+        a, b, w_ = la[c:c + (1 << 20), None], lb[c:c + (1 << 20), None], w[c:c + (1 << 20), None]
+        span = torch.clamp(torch.minimum(i + w_ + 1, b) - torch.clamp(i - w_, min=0), min=0)
+        total += int(torch.where(i < a, span, 0).sum())
+    return total
 
 
-def lev_ops(torch, l1, l2):
-    """Per pair with both sides non-empty: l1 * l2 character comparisons to
-    build the match masks plus 15 word operations per text character (the
-    Myers/Hyyro step). A lower bound on the kernel's integer work."""
+def lev_ops(torch, s1, l1, l2):
+    """The word operations of the kernel's algorithm for these inputs, per
+    pair with both sides non-empty: the shorter string (lt) steps through
+    the longer (lp); each step builds the match mask with ceil(lp / 4) SWAR
+    compares for uint8 (lp compares for 32-bit codepoints) and advances
+    ceil(lp / 32) words at 15 operations each. Every such operation is at
+    least one instruction, so this bounds the kernel's integer work from
+    below."""
+    lt = torch.minimum(l1, l2).long()
+    lp = torch.maximum(l1, l2).long()
+    compares = (lp + 3) // 4 if s1.element_size() == 1 else lp
+    per_step = compares + 15 * ((lp + 31) // 32)
+    return int(torch.where(lt > 0, lt * per_step, 0).sum())
+
+
+def lev_ops_one_word(torch, s1, l1, l2):
+    """The count used before the redesign, for the one-word kernel: l1 * l2
+    scalar compares plus 15 word operations per text character."""
     a, b = l1.long(), l2.long()
-    both = (a > 0) & (b > 0)
-    return int(torch.where(both, a * b + 15 * a, 0).sum())
+    return int(torch.where((a > 0) & (b > 0), a * b + 15 * a, 0).sum())
+
+
+def res_usage(cuda_tool, libs):
+    """Per kernel variant ("<kernel>/<u8|u32>/w<W>", w0 the generic form)
+    the registers and stack frame bytes, read from the built libraries with
+    ``cuobjdump -res-usage``."""
+    names = {"levenshtein_kernel": "levenshtein", "levenshtein_generic_kernel": "levenshtein",
+             "jaro_winkler_kernel": "jaro_winkler", "jaro_winkler_wide_kernel": "jaro_winkler"}
+    pat = re.compile(r"\d(levenshtein_generic_kernel|levenshtein_kernel|"
+                     r"jaro_winkler_wide_kernel|jaro_winkler_kernel)I([hj])(?:Li(\d+)E)?")
+    out, current = {}, None
+    for path in libs.values():
+        text = subprocess.run([cuda_tool("cuobjdump"), "-res-usage", path],
+                              capture_output=True, text=True, check=True).stdout
+        for line in text.splitlines():
+            if "Function" in line:
+                m = pat.search(line)
+                current = None
+                if m:
+                    w = m.group(3) or ("1" if m.group(1) == "jaro_winkler_kernel" else "0")
+                    current = f"{names[m.group(1)]}/{'u8' if m.group(2) == 'h' else 'u32'}/w{w}"
+            regs = re.search(r"REG:(\d+) STACK:(\d+)", line)
+            if current and regs:
+                out[current] = {"registers": int(regs.group(1)), "stack_bytes": int(regs.group(2))}
+    return out
 
 
 def measure(torch, name, plain_fn, kernel_fn, args, ops_fn):
@@ -230,12 +345,13 @@ def measure(torch, name, plain_fn, kernel_fn, args, ops_fn):
     err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
     n = s1.shape[0]
     nbytes = 2 * s1.numel() * s1.element_size() + 2 * 4 * n + 4 * n
-    ops = ops_fn(torch, l1, l2)
+    ops = ops_fn(torch, s1, l1, l2)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return {
         "max_abs_err": err,
         "ms": cuda_ms(torch, lambda: kernel_fn(*args)),
-        "plain_ms": cuda_ms(torch, lambda: plain_fn(*args)),
+        "call_ms": cuda_ms(torch, lambda: kernel_fn(*args), device_only=False),
+        "plain_ms": cuda_ms(torch, lambda: plain_fn(*args), device_only=False),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "shape": [n, s1.shape[1]],
@@ -252,6 +368,31 @@ KERNELS = {
     "levenshtein": ("splink_tpu/ops/strings_pallas.py:225", "levenshtein_plain",
                     "levenshtein_cuda", lev_ops),
 }
+
+
+def cuda_vs_cpu(splink_tpu_torch, strings_cuda, settings, df):
+    """The same settings and rows through the linker on the card and on the
+    CPU. Raises unless the pair sets and gamma matrices are equal and the
+    match probabilities within 1e-5. Returns the card's linker and frame,
+    the CPU's linker, the largest probability difference and the kernel
+    variants the card's run launched."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        strings_cuda.variant_launches.clear()
+        lk = splink_tpu_torch.Splink(json.loads(json.dumps(settings)), df=df, device=dev)
+        runs[dev] = (lk, lk.get_scored_comparisons(), dict(strings_cuda.variant_launches))
+    (gpu, gdf, variants), (cpu, cdf, cpu_variants) = runs["cuda"], runs["cpu"]
+    if cpu_variants:
+        raise AssertionError(f"the CPU run launched kernels: {cpu_variants}")
+    if not (np.array_equal(gpu._pairs.idx_l, cpu._pairs.idx_l)
+            and np.array_equal(gpu._pairs.idx_r, cpu._pairs.idx_r)):
+        raise AssertionError("pair sets differ between cuda and cpu")
+    if not np.array_equal(gpu._G, cpu._G):
+        raise AssertionError("gamma matrices differ between cuda and cpu")
+    dp = np.abs(gdf["match_probability"].to_numpy() - cdf["match_probability"].to_numpy())
+    if dp.max() > 1e-5:
+        raise AssertionError(f"match_probability cuda vs cpu differs by {dp.max()}")
+    return gpu, gdf, cpu, float(dp.max()), variants
 
 
 # ----------------------------------------------------------------------
@@ -280,21 +421,37 @@ def main() -> int:
          allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
     t0 = time.perf_counter()
-    lib = strings_cuda.build()
-    ptxas = [ln.strip() for ln in strings_cuda.build_log.splitlines() if "registers" in ln]
-    emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(lib),
-         flags=strings_cuda.NVCC_FLAGS, ptxas=ptxas)
+    libs = strings_cuda.build()
+    build_s = time.perf_counter() - t0
+    usage = res_usage(strings_cuda.cuda_tool, libs)
+    emit("build", seconds=build_s,
+         libraries={k: os.path.relpath(v) for k, v in libs.items()},
+         flags=strings_cuda.NVCC_FLAGS, res_usage=usage)
+    for name, variants in strings_cuda.VARIANT_WORDS.items():
+        for w in (*variants, 0):
+            for kind in ("u8", "u32"):
+                if f"{name}/{kind}/w{w}" not in usage:
+                    raise AssertionError(f"cuobjdump reports no {name}/{kind}/w{w}: {usage}")
+    for w in strings_cuda.VARIANT_WORDS["levenshtein"]:
+        frame = usage[f"levenshtein/u8/w{w}"]["stack_bytes"]
+        if frame != 0:
+            raise AssertionError(f"levenshtein u8 w{w}: stack frame {frame} bytes, expected 0")
 
     # -- kernels vs plain versions on random pairs and the edge cases ----
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checked = []
-    for width in (24, 32):
+    t0 = time.perf_counter()
+    for width in CHECK_WIDTHS:
+        n = KERNEL_CHECK_PAIRS if width <= 32 else WIDE_CHECK_PAIRS
         for wide in (False, True):
-            check_kernels(torch, strings, strings_cuda,
-                          random_pairs(torch, KERNEL_CHECK_PAIRS, width, wide, gen))
-            checked.append(f"{KERNEL_CHECK_PAIRS}x{width}{'-u32' if wide else '-u8'}")
+            check_kernels(torch, strings, strings_cuda, random_pairs(torch, n, width, wide, gen))
+            dtype = torch.int32 if wide else torch.uint8
+            checked.append(f"{n}x{width}-" + ",".join(
+                "{}-{}-w{}".format(k, *strings_cuda.kernel_variant(k, width, dtype))
+                for k in KERNELS))
     check_kernels(torch, strings, strings_cuda, edge_pairs(torch))
     checked.append("edge_cases")
+    check_s = time.perf_counter() - t0
     # a uniform large batch beside the main path's own shapes (below)
     big = random_pairs(torch, KERNEL_CHECK_PAIRS, 24, False, gen)
     at_2m = {
@@ -302,8 +459,9 @@ def main() -> int:
         for name, (_, plain, wrap, ops) in KERNELS.items()
     }
     del big
-    emit("kernels", checked=checked, jaro_winkler="torch.equal", levenshtein="exact",
-         at_2M_pairs_w24={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+    emit("kernels", checked=checked, seconds=check_s, jaro_winkler="torch.equal",
+         levenshtein="exact",
+         at_2M_pairs_w24={k: {f: v[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms")}
                           for k, v in at_2m.items()})
 
     # -- the main path at full size ----------------------------------------
@@ -312,6 +470,7 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     for k in strings_cuda.launches:
         strings_cuda.launches[k] = 0
+    strings_cuda.variant_launches.clear()
     strings_cuda.capture = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -319,6 +478,7 @@ def main() -> int:
     df_e = linker.get_scored_comparisons()
     wall = time.perf_counter() - t0
     launches = dict(strings_cuda.launches)
+    main_variants = dict(strings_cuda.variant_launches)
     captured, strings_cuda.capture = strings_cuda.capture, None
     for k, v in launches.items():
         if v <= 0:
@@ -345,6 +505,7 @@ def main() -> int:
     emit("main_path", rows=N_ROWS, pairs=n_pairs, data_gen_s=gen_s, wall_s=wall,
          stage_s=linker.stage_seconds, em_updates=int(result.n_updates),
          em_converged=bool(result.converged), launches=launches,
+         variant_launches=main_variants,
          planted_pairs=int(planted.sum()), planted_median_p=med_dup,
          other_p99=p99_other, lambda_=float(linker.params.params["λ"]),
          peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -355,33 +516,39 @@ def main() -> int:
     for name, (replaces, plain, wrap, ops) in KERNELS.items():
         rows.append({
             "name": name, "route": "cuda",
-            "source": "splink_tpu_torch/csrc/strings.cu", "replaces": replaces,
+            "source": f"splink_tpu_torch/csrc/{name}.cu", "replaces": replaces,
             "launches": launches[name],
             **measure(torch, name, getattr(strings, plain), getattr(strings_cuda, wrap),
                       captured[name], ops),
             "library_ms": None,
             "at_2M_pairs_w24": at_2m[name],
+            "res_usage": {k: v for k, v in usage.items() if k.startswith(name + "/")},
         })
-    emit("kernel_timing", kernels=[r["name"] for r in rows])
+    s1, _, l1, l2 = captured["levenshtein"]
+    emit("kernel_timing", kernels=[r["name"] for r in rows],
+         levenshtein_int_ops={"this_kernel": lev_ops(torch, s1, l1, l2),
+                              "one_word_count": lev_ops_one_word(torch, s1, l1, l2)})
 
     # -- parity: a 20,000-row subset on the card and on the CPU -------------
     sub = df[df["blk"] < SUBSET_ROWS // 32].reset_index(drop=True)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        lk = splink_tpu_torch.Splink(json.loads(json.dumps(SETTINGS)), df=sub, device=dev)
-        runs[dev] = (lk, lk.get_scored_comparisons())
-    (gpu, gdf), (cpu, cdf) = runs["cuda"], runs["cpu"]
-    if not (np.array_equal(gpu._pairs.idx_l, cpu._pairs.idx_l)
-            and np.array_equal(gpu._pairs.idx_r, cpu._pairs.idx_r)):
-        raise AssertionError("pair sets differ between cuda and cpu")
-    if not np.array_equal(gpu._G, cpu._G):
-        raise AssertionError("gamma matrices differ between cuda and cpu")
-    dp = np.abs(gdf["match_probability"].to_numpy() - cdf["match_probability"].to_numpy())
-    if dp.max() > 1e-5:
-        raise AssertionError(f"match_probability cuda vs cpu differs by {dp.max()}")
-    emit("parity", rows=len(sub), pairs=gpu._pairs.n_pairs, max_abs_dp=float(dp.max()),
+    gpu, gdf, cpu, dp, _ = cuda_vs_cpu(splink_tpu_torch, strings_cuda, SETTINGS, sub)
+    emit("parity", rows=len(sub), pairs=gpu._pairs.n_pairs, max_abs_dp=dp,
          em_updates={"cuda": gpu._last_em_result.n_updates,
                      "cpu": cpu._last_em_result.n_updates})
+
+    # -- wide: columns of max_string_length 64, on the card and on the CPU --
+    wdf = make_addresses(SUBSET_ROWS, SEED + 1)
+    wg, wgdf, _, wdp, wide_variants = cuda_vs_cpu(splink_tpu_torch, strings_cuda,
+                                                  WIDE_SETTINGS, wdf)
+    for name in KERNELS:
+        if not any(v > 0 and k.startswith(name + "/") and not k.endswith("/w1")
+                   for k, v in wide_variants.items()):
+            raise AssertionError(f"the wide run launched no multi-word {name} kernel: "
+                                 f"{wide_variants}")
+    emit("wide", rows=len(wdf), pairs=wg._pairs.n_pairs,
+         widths={c: wg._table.strings[c].width for c in ("address", "employer")},
+         variant_launches=wide_variants, max_abs_dp=wdp,
+         gamma_levels={c: np.unique(wgdf[f"gamma_{c}"]).tolist() for c in ("address", "employer")})
 
     # -- model JSON round trip on the card ------------------------------------
     out_dir = os.path.join(strings_cuda.build_dir(), "chip_smoke")

@@ -24,16 +24,18 @@ from __future__ import annotations
 
 import torch
 
-# (B, L, L) intermediates: bound the plain versions' working set
-_PLAIN_CHUNK = 1 << 18
+# The plain Jaro-Winkler builds (B, L, L) intermediates: chunks of the batch
+# hold at most this many B * L * L elements (2^18 rows at L = 32), so the
+# plain versions can check the kernels on the card at any width
+_PLAIN_ELEMENTS = 1 << 28
 
 
-def _chunked(fn, n, *arrays):
-    if n <= _PLAIN_CHUNK:
+def _chunked(fn, *arrays):
+    n, L = arrays[0].shape
+    rows = max(1, _PLAIN_ELEMENTS // max(L * L, 1))
+    if n <= rows:
         return fn(*arrays)
-    return torch.cat(
-        [fn(*(a[s : s + _PLAIN_CHUNK] for a in arrays)) for s in range(0, n, _PLAIN_CHUNK)]
-    )
+    return torch.cat([fn(*(a[s : s + rows] for a in arrays)) for s in range(0, n, rows)])
 
 
 def _three(device):
@@ -146,7 +148,7 @@ def jaro_winkler_plain(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7):
     l1, l2 (B,) lengths -> (B,) float32. Any width and device."""
     return _chunked(
         lambda a, b, c, d: _jaro_winkler_plain(a, b, c, d, prefix_scale, boost_threshold),
-        s1.shape[0], s1, s2, l1, l2,
+        s1, s2, l1, l2,
     )
 
 
@@ -170,7 +172,7 @@ def _levenshtein_plain(s1, s2, l1, l2):
 
 def levenshtein_plain(s1, s2, l1, l2):
     """Batched Levenshtein distance, plain PyTorch: (B,) int32."""
-    return _chunked(_levenshtein_plain, s1.shape[0], s1, s2, l1, l2)
+    return _chunked(_levenshtein_plain, s1, s2, l1, l2)
 
 
 def ratio_from_distance(d, l1, l2):

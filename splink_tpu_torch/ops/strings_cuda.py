@@ -1,30 +1,35 @@
-"""Wrappers for the hand-written CUDA string kernels (csrc/strings.cu).
+"""Wrappers for the hand-written CUDA string kernels (csrc/*.cu).
 
 The counterpart of splink_tpu/ops/strings_pallas.py:
 
-  * ``jaro_winkler_cuda`` replaces ``jaro_winkler_pallas``
-    (strings_pallas.py:123) and must equal the plain version bit for bit;
-  * ``levenshtein_cuda`` replaces ``levenshtein_pallas``
-    (strings_pallas.py:225) and must equal it exactly.
+  * ``jaro_winkler_cuda`` (csrc/jaro_winkler.cu) replaces
+    ``jaro_winkler_pallas`` (strings_pallas.py:123) and must equal the plain
+    version bit for bit;
+  * ``levenshtein_cuda`` (csrc/levenshtein.cu) replaces
+    ``levenshtein_pallas`` (strings_pallas.py:225) and must equal it
+    exactly.
 
-Both kernels take one pair per thread. Per pair they read about 2L + 8
-bytes and write 4, against O(L^2) integer work, so on an H100 they are
-bound by the integer ALUs, not by HBM (the bound that chip_smoke.py
-reports is the larger of the bytes over 3.35 TB/s and the integer
-operations over the card's INT32 rate).
+Both take one pair per thread and every column width: the kernel variant
+is the number of 32-bit words W that a pair's per-position sets need
+(``kernel_variant``). Levenshtein runs a variant with W fixed at compile
+time up to width 256, Jaro-Winkler up to width 32; wider columns run each
+kernel's generic form, for which the wrapper allocates per-pair scratch. Per pair the kernels read about 2L + 8 bytes
+and write 4; chip_smoke.py reports each one's time beside the larger of the
+bytes over 3.35 TB/s and its integer operations over the card's INT32 rate.
 
-The library is compiled from the sources in this package by ``nvcc`` at
-first use, into ``build/splink_tpu_torch/`` beside the package (override
-with ``SPLINK_TPU_TORCH_BUILD_DIR``), keyed by a hash of the source. A
-failed build raises; nothing falls back to the plain versions. The gate
-mirrors ``pallas_supported``: a CUDA tensor, 2-D, width <= 32, uint8 or the
-uint32 wide-unicode encoding (carried as uint32 or int32); a wider CUDA
-column raises NotImplementedError.
+Each source is compiled by ``nvcc`` at first use into its own library in
+``build/splink_tpu_torch/`` beside the package (override with
+``SPLINK_TPU_TORCH_BUILD_DIR``), all sources at once, keyed by a hash of
+every file under csrc/ and the flags. A failed build raises; nothing falls
+back to the plain versions. A wrapper takes CUDA tensors only: 2-D
+characters, uint8 or 32-bit codepoints (uint32, or int32 as the encoder
+carries them), and (B,) int32 lengths; anything else raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -33,19 +38,22 @@ import threading
 
 import torch
 
-MAX_CUDA_WIDTH = 32
-
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "strings.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+KERNELS = ("jaro_winkler", "levenshtein")  # one csrc/<name>.cu each
+# Per kernel, the word counts compiled with W fixed; 0 names the generic form
+VARIANT_WORDS = {"jaro_winkler": (1,), "levenshtein": (1, 2, 4, 8)}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
 ]
 
 # Launch counts: each wrapper adds one where it launches its kernel, and
 # nowhere else. chip_smoke.py zeroes them around the main path.
-launches = {"jaro_winkler": 0, "levenshtein": 0}
+launches = {name: 0 for name in KERNELS}
+# The same launches by variant, keyed "<kernel>/<u8|u32>/w<W>" (w0: generic).
+variant_launches: dict[str, int] = {}
 
 # When set to a dict, each wrapper records clones of the arguments of its
 # FIRST launch under its name (chip_smoke.py holds the kernels against the
@@ -53,8 +61,27 @@ launches = {"jaro_winkler": 0, "levenshtein": 0}
 capture: dict | None = None
 
 _lock = threading.Lock()
-_lib = None
-build_log = ""  # nvcc's output of the last build (ptxas register report)
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+_KINDS = {torch.uint8: "u8", torch.int32: "u32", torch.uint32: "u32"}
+
+
+def kernel_variant(kernel: str, width: int, dtype: torch.dtype) -> tuple[str, int]:
+    """The character type and word variant of ``kernel`` for a (B, width)
+    column: ("u8" | "u32", W) with W the least of VARIANT_WORDS[kernel]
+    such that 32 * W >= width, or 0 (generic) past the widest. Raises on
+    another dtype."""
+    kind = _KINDS.get(dtype)
+    if kind is None:
+        raise ValueError(f"unsupported character dtype {dtype}")
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    words = (width + 31) // 32
+    for w in VARIANT_WORDS[kernel]:
+        if w >= words:
+            return kind, w
+    return kind, 0
 
 
 def build_dir() -> str:
@@ -63,67 +90,80 @@ def build_dir() -> str:
     )
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): PATH, then
+    $CUDA_HOME/bin (default /usr/local/cuda)."""
     for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which(name),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name),
     ):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA string kernels "
+        f"{name} not found (PATH or $CUDA_HOME/bin): the CUDA string kernels "
         "are built from splink_tpu_torch/csrc at first use"
     )
 
 
-def library_path() -> str:
-    with open(_SOURCE, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(build_dir(), f"libsplink_strings-{digest[:12]}.so")
+def sources_digest() -> str:
+    """Hash of every file under csrc/ (sources and headers) and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:12]
 
 
-def build() -> str:
-    """Compile csrc/strings.cu (if this source's library is not built yet)
-    and return the library path. Raises with nvcc's output on failure."""
-    global build_log
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(build_dir(), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-        capture_output=True, text=True,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{build_log}")
-    os.replace(tmp, path)
-    return path
+def library_path(name: str) -> str:
+    return os.path.join(build_dir(), f"libsplink_{name}-{sources_digest()}.so")
 
 
-def _load():
-    global _lib
+def build() -> dict[str, str]:
+    """Compile every csrc/<kernel>.cu whose library is not built yet, one
+    nvcc per source, all started together; returns {kernel: library path}.
+    Raises with nvcc's output if any build fails."""
+    paths = {name: library_path(name) for name in KERNELS}
+    todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
+    if todo:
+        os.makedirs(build_dir(), exist_ok=True)
+        procs = {}
+        for name, path in todo.items():
+            src = os.path.join(_CSRC, f"{name}.cu")
+            tmp = f"{path}.{os.getpid()}.tmp"
+            procs[name] = (tmp, src, subprocess.Popen(
+                [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        failed = []
+        for name, (tmp, src, proc) in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {src}:\n{log}")
+            else:
+                os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def _load(name: str):
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            ptr = ctypes.c_void_p
-            for name in ("splink_jaro_winkler_u8", "splink_jaro_winkler_u32"):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int,
-                               ctypes.c_float, ctypes.c_float, ptr, ptr]
-            for name in ("splink_levenshtein_u8", "splink_levenshtein_u32"):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int,
-                               ptr, ptr]
-            _lib = lib
-        return _lib
+        if not _libs:
+            ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+            head = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+            for kernel, path in build().items():
+                lib = ctypes.CDLL(path)
+                fn = getattr(lib, f"splink_{kernel}")
+                fn.restype = i32
+                tail = [f32, f32, ptr, ptr] if kernel == "jaro_winkler" else [ptr, ptr]
+                fn.argtypes = head + tail
+                _libs[kernel] = fn
+        return _libs[name]
 
 
-def _check(s1, s2, l1, l2) -> str:
-    """Validate a kernel call; returns the entry-point suffix (u8 | u32)."""
+def _check(kernel, s1, s2, l1, l2) -> tuple[str, int]:
+    """Validate a call of ``kernel``; returns its ``kernel_variant``."""
     for name, t in (("s1", s1), ("s2", s2), ("l1", l1), ("l2", l2)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -136,54 +176,50 @@ def _check(s1, s2, l1, l2) -> str:
                          f"{tuple(s1.shape)} and {tuple(s2.shape)}")
     if s1.dtype != s2.dtype:
         raise ValueError(f"s1, s2 dtypes differ: {s1.dtype} vs {s2.dtype}")
-    if s1.shape[1] > MAX_CUDA_WIDTH:
-        raise NotImplementedError(
-            f"the CUDA string kernels take widths <= {MAX_CUDA_WIDTH}, got "
-            f"{s1.shape[1]} (ROADMAP.md, 'kernel widths > 32 on CUDA')"
-        )
     B = s1.shape[0]
     for name, t in (("l1", l1), ("l2", l2)):
         if t.dtype != torch.int32 or t.shape != (B,):
             raise ValueError(f"{name} must be ({B},) int32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if s1.dtype == torch.uint8:
-        return "u8"
-    if s1.dtype in (torch.int32, torch.uint32):
-        return "u32"
-    raise ValueError(f"unsupported character dtype {s1.dtype}")
+    return kernel_variant(kernel, s1.shape[1], s1.dtype)
 
 
-def _launch(name, fn_name, out, s1, s2, l1, l2, *scalars):
+def _launch(name, out, s1, s2, l1, l2, *scalars):
     """Launch one kernel on the current stream into ``out``; counts it and
     raises if CUDA refused the launch."""
-    kind = _check(s1, s2, l1, l2)
-    fn = getattr(_load(), f"{fn_name}_{kind}")
-    if not s1.shape[0]:
+    kind, words = _check(name, s1, s2, l1, l2)
+    fn = _load(name)
+    B, width = s1.shape
+    if not B:
         return out
     if capture is not None and name not in capture:
         capture[name] = tuple(a.clone() for a in (s1, s2, l1, l2))
+    scratch = None
+    if words == 0:  # generic form: 2 * ceil(width / 32) words per pair
+        scratch = torch.empty(2 * -(-width // 32) * B, dtype=torch.int32, device=s1.device)
     err = fn(
-        s1.data_ptr(), s2.data_ptr(), l1.data_ptr(), l2.data_ptr(),
-        s1.shape[0], s1.shape[1], *scalars, out.data_ptr(),
-        torch.cuda.current_stream(s1.device).cuda_stream,
+        s1.data_ptr(), s2.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, width,
+        s1.element_size(), words, None if scratch is None else scratch.data_ptr(),
+        *scalars, out.data_ptr(), torch.cuda.current_stream(s1.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
+    key = f"{name}/{kind}/w{words}"
+    variant_launches[key] = variant_launches.get(key, 0) + 1
     return out
 
 
 def jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7):
-    """Batched Jaro-Winkler on the card: s1, s2 (B, L <= 32) uint8 or
-    uint32/int32 codepoints, l1, l2 (B,) int32 -> (B,) float32. Replaces
+    """Batched Jaro-Winkler on the card: s1, s2 (B, L) uint8 or uint32/int32
+    codepoints, any L, l1, l2 (B,) int32 -> (B,) float32. Replaces
     splink_tpu/ops/strings_pallas.py:jaro_winkler_pallas."""
     out = torch.empty(s1.shape[0], dtype=torch.float32, device=s1.device)
-    return _launch("jaro_winkler", "splink_jaro_winkler", out, s1, s2, l1, l2,
-                   prefix_scale, boost_threshold)
+    return _launch("jaro_winkler", out, s1, s2, l1, l2, prefix_scale, boost_threshold)
 
 
 def levenshtein_cuda(s1, s2, l1, l2):
-    """Batched Levenshtein distance on the card: (B,) int32. Replaces
-    splink_tpu/ops/strings_pallas.py:levenshtein_pallas."""
+    """Batched Levenshtein distance on the card, any L: (B,) int32.
+    Replaces splink_tpu/ops/strings_pallas.py:levenshtein_pallas."""
     out = torch.empty(s1.shape[0], dtype=torch.int32, device=s1.device)
-    return _launch("levenshtein", "splink_levenshtein", out, s1, s2, l1, l2)
+    return _launch("levenshtein", out, s1, s2, l1, l2)

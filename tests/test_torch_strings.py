@@ -3,10 +3,11 @@
 The plain versions are what the CUDA kernels are held against on the card
 (chip_smoke.py), so here they are held against the JAX reference on the
 CPU: Jaro-Winkler bit for bit (``assert_array_equal``) with
-``jaro_winkler_vmapped`` at widths 8/24/32 (bitmask form) and 40 (vector
-form), uint8 and wide uint32; the jar golden vectors at the tolerance of
-tests/test_jar_similarity.py; Levenshtein exactly equal to
-``levenshtein_vmapped`` and to the Pallas kernel in interpret mode.
+``jaro_winkler_vmapped`` at widths 8/24/32 (bitmask form) and 40 to 264
+(vector form), uint8 and wide uint32; the jar golden vectors at the
+tolerance of tests/test_jar_similarity.py; Levenshtein exactly equal to
+``levenshtein_vmapped`` at the same widths and to the Pallas kernel in
+interpret mode.
 """
 
 import json
@@ -50,13 +51,20 @@ def _t(a):
     return torch.from_numpy(a.astype(np.int32) if a.dtype == np.uint32 else a)
 
 
+# widths past one 32-bit word: the kernels' multi-word and generic variants
+WIDE = [(w, d) for w in (40, 64, 128, 256, 264) for d in (np.uint8, np.uint32)]
+
+
+def _n_pairs(width):
+    return 2000 if width <= 40 else 300  # the widest cases take a few hundred
+
+
 @pytest.mark.parametrize(
     "width,dtype",
-    [(8, np.uint8), (24, np.uint8), (32, np.uint8), (24, np.uint32), (32, np.uint32),
-     (40, np.uint8), (40, np.uint32)],
+    [(8, np.uint8), (24, np.uint8), (32, np.uint8), (24, np.uint32), (32, np.uint32)] + WIDE,
 )
 def test_jaro_winkler_bit_identical_to_vmapped(width, dtype):
-    s1, s2, l1, l2 = _pairs(width, 2000, width, dtype)
+    s1, s2, l1, l2 = _pairs(width, _n_pairs(width), width, dtype)
     want = np.asarray(ref_strings.jaro_winkler_vmapped(s1, s2, l1, l2, 0.1, 0.7))
     got = strings.jaro_winkler(_t(s1), _t(s2), _t(l1), _t(l2), 0.1, 0.7).numpy()
     assert got.dtype == np.float32
@@ -80,9 +88,11 @@ def test_jaro_winkler_matches_jar_golden_vectors():
         assert not (off_boundary & ((ours > t) != (jar > t))).any()
 
 
-@pytest.mark.parametrize("width,dtype", [(8, np.uint8), (24, np.uint8), (32, np.uint8), (24, np.uint32)])
+@pytest.mark.parametrize(
+    "width,dtype", [(8, np.uint8), (24, np.uint8), (32, np.uint8), (24, np.uint32)] + WIDE
+)
 def test_levenshtein_equal_to_vmapped(width, dtype):
-    s1, s2, l1, l2 = _pairs(100 + width, 2000, width, dtype)
+    s1, s2, l1, l2 = _pairs(100 + width, _n_pairs(width), width, dtype)
     want = np.asarray(ref_strings.levenshtein_vmapped(s1, s2, l1, l2))
     got = strings.levenshtein(_t(s1), _t(s2), _t(l1), _t(l2)).numpy()
     assert got.dtype == np.int32
@@ -129,13 +139,14 @@ def test_cuda_wrapper_checks_inputs():
     dispatch of a CPU tensor goes to the plain version."""
     from splink_tpu_torch.ops import strings_cuda
 
-    s = torch.zeros((4, 8), dtype=torch.uint8)
     ln = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        strings_cuda.jaro_winkler_cuda(s, s, ln, ln)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        strings_cuda.levenshtein_cuda(s, s, ln, ln)
-    before = dict(strings_cuda.launches)
-    strings.jaro_winkler(s, s, ln, ln)
-    strings.levenshtein(s, s, ln, ln)
-    assert strings_cuda.launches == before
+    for s in (torch.zeros((4, 8), dtype=torch.uint8), torch.zeros((4, 264), dtype=torch.uint8),
+              torch.zeros((4, 264), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            strings_cuda.jaro_winkler_cuda(s, s, ln, ln)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            strings_cuda.levenshtein_cuda(s, s, ln, ln)
+        before = dict(strings_cuda.launches), dict(strings_cuda.variant_launches)
+        strings.jaro_winkler(s, s, ln, ln)
+        strings.levenshtein(s, s, ln, ln)
+        assert (strings_cuda.launches, strings_cuda.variant_launches) == before
