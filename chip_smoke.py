@@ -5,13 +5,19 @@
 
 Builds the hand-written CUDA string kernels from splink_tpu_torch/csrc,
 holds each against its plain PyTorch version on the card at every variant's
-widths (8 to 264, uint8 and 32-bit codepoints), drives the resident
+widths (8 to 264, uint8 and 32-bit codepoints; Jaro-Winkler dense and
+masked), holds the masked Jaro-Winkler launch against the masked plain
+version at survivor densities 0, 0.2%, 50% and 100%, drives the resident
 train-and-score path at full size through the public entry point (1,000,000
 seeded rows, ~16M candidate pairs, two Jaro-Winkler columns, one
-Levenshtein, one numeric, one exact), checks the output, runs a 20,000-row
-subset on the card and on the CPU for parity, runs columns of
-max_string_length 64 on the card and on the CPU (the multi-word kernel
-variants), and round-trips the model through JSON. Every phase prints one
+Levenshtein, one numeric, one exact; every Jaro-Winkler launch there must
+be one masked launch per column and batch), checks the output, checks the
+masked kernel on the main path's first batch and its real survivor mask,
+times each kernel and the whole two-phase step of one batch, runs a
+20,000-row subset on the card and on the CPU for parity, runs columns of
+max_string_length 64 and 96 on the card and on the CPU (the multi-word and
+generic kernel variants, the W = 2 Jaro-Winkler form timed against the
+generic one), and round-trips the model through JSON. Every phase prints one
 JSON line; any failed check raises. The last lines are the kernel table,
 the card's name and power limit as nvidia-smi reports them, and
 {"ok": true, "device": {...}}.
@@ -37,7 +43,9 @@ SEED = 20261016
 KERNEL_CHECK_PAIRS = 2_000_000
 WIDE_CHECK_PAIRS = 100_000  # past width 32, so that the plain versions fit
 CHECK_WIDTHS = (8, 24, 32, 40, 64, 128, 256, 264)
+MASK_DENSITIES = (0.0, 0.002, 0.5, 1.0)  # masked-launch checks at 2M x 24
 TIMING_RUNS = 15
+STEP_RUNS = 51  # host-clock readings vary more than device times
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers one call's launch
 L2_FLUSH_BYTES = 256 << 20  # read before each timed run: 5x the H100's 50 MB L2
 
@@ -67,12 +75,15 @@ SETTINGS = {
 }
 
 # Long free-text columns: the multi-word kernel variants on the main path's
-# entry points (width 64 = two 32-bit words)
+# entry points (width 64 = two 32-bit words; width 96 takes Jaro-Winkler's
+# generic form)
 WIDE_SETTINGS = {
     "link_type": "dedupe_only",
     "blocking_rules": ["l.blk = r.blk"],
     "comparison_columns": [
         {"col_name": "address", "num_levels": 3, "max_string_length": 64,
+         "comparison": {"kind": "jaro_winkler", "thresholds": [0.94, 0.88]}},
+        {"col_name": "notes", "num_levels": 3, "max_string_length": 96,
          "comparison": {"kind": "jaro_winkler", "thresholds": [0.94, 0.88]}},
         {"col_name": "employer", "num_levels": 3, "max_string_length": 64,
          "comparison": {"kind": "levenshtein", "thresholds": [0.3]}},
@@ -144,9 +155,10 @@ def make_people(n: int, seed: int):
 
 def make_addresses(n: int, seed: int):
     """Seeded table of long values: ``address`` 20-60 letters and spaces
-    (n // 4 distinct), ``employer`` 10-50 (n // 8), ``dob``; ~10% planted
-    duplicates with a one-character typo in address or employer, ~2% nulls,
-    ``blk`` uniform over n // 32 groups."""
+    (n // 4 distinct), ``employer`` 10-50 (n // 8), ``notes`` 40-90
+    (n // 4), ``dob``; ~10% planted duplicates with a one-character typo in
+    address, employer or notes, ~2% nulls, ``blk`` uniform over n // 32
+    groups."""
     import pandas as pd
 
     rng = np.random.default_rng(seed)
@@ -161,15 +173,16 @@ def make_addresses(n: int, seed: int):
     cols = {"address": pool(max(n // 4, 1), 20, 60)[rng.integers(0, max(n // 4, 1), n_base)],
             "employer": pool(max(n // 8, 1), 10, 50)[rng.integers(0, max(n // 8, 1), n_base)],
             "dob": rng.integers(0, 30_000, n_base).astype(np.float64),
-            "blk": rng.integers(0, max(n // 32, 1), n_base)}
+            "blk": rng.integers(0, max(n // 32, 1), n_base),
+            "notes": pool(max(n // 4, 1), 40, 90)[rng.integers(0, max(n // 4, 1), n_base)]}
     src = rng.integers(0, n_base, n_dup)
     for k in cols:
         cols[k] = np.concatenate([cols[k], cols[k][src]])
-    which = rng.integers(0, 2, n_dup)
+    which = rng.integers(0, 3, n_dup)
     for r in range(n_dup):
-        k = ("address", "employer")[which[r]]
+        k = ("address", "employer", "notes")[which[r]]
         cols[k][n_base + r] = _typo(rng, cols[k][n_base + r])
-    for k in ("address", "employer", "dob"):
+    for k in ("address", "employer", "notes", "dob"):
         cols[k] = cols[k].astype(object)
         cols[k][rng.random(n) < 0.02] = None
     cols["unique_id"] = np.arange(n)
@@ -221,11 +234,14 @@ def edge_pairs(torch):
     return enc(a), enc(b), lens(a), lens(b)
 
 
-def check_kernels(torch, strings, strings_cuda, args):
-    """Kernel vs plain version on the same card tensors; raises if they
-    differ (Jaro-Winkler: torch.equal on float32; Levenshtein: exact)."""
+def check_kernels(torch, strings, strings_cuda, args, gen):
+    """Kernel vs plain version on the same card tensors, Jaro-Winkler also
+    masked to a random half of the pairs; raises if they differ
+    (Jaro-Winkler: torch.equal on float32; Levenshtein: exact)."""
+    mask = torch.rand(args[0].shape[0], generator=gen, device="cuda") < 0.5
     jw_k = strings_cuda.jaro_winkler_cuda(*args)
     jw_p = strings.jaro_winkler_plain(*args)
+    jw_mk = strings_cuda.jaro_winkler_cuda(*args, mask=mask)
     lev_k = strings_cuda.levenshtein_cuda(*args)
     lev_p = strings.levenshtein_plain(*args)
     torch.cuda.synchronize()
@@ -233,9 +249,18 @@ def check_kernels(torch, strings, strings_cuda, args):
     if not torch.equal(jw_k, jw_p):
         bad = int((jw_k != jw_p).sum())
         raise AssertionError(f"jaro_winkler kernel differs from plain on {bad} pairs at {shape}")
+    check_masked(torch, jw_mk, torch.where(mask, jw_p, 0.0), f"{shape}, half masked")
     if not torch.equal(lev_k, lev_p):
         bad = int((lev_k != lev_p).sum())
         raise AssertionError(f"levenshtein kernel differs from plain on {bad} pairs at {shape}")
+
+
+def check_masked(torch, got, want, what):
+    """The masked Jaro-Winkler launch against the masked plain version."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"masked jaro_winkler differs from plain on {bad} pairs: {what}")
 
 
 def cuda_ms(torch, fn, runs=TIMING_RUNS, warmup=3, device_only=True):
@@ -270,10 +295,33 @@ def cuda_ms(torch, fn, runs=TIMING_RUNS, warmup=3, device_only=True):
     return float(np.median(times))
 
 
-def jw_ops(torch, s1, l1, l2):
-    """Character comparisons of the greedy eligibility scan for these
-    inputs: sum over i < min(l) of the window span clipped to [0, max(l)),
-    at any width. A lower bound on the kernel's integer work."""
+def jw_ops(torch, s1, l1, l2, mask=None):
+    """The word operations of the kernel's algorithm for these inputs, per
+    pair the mask keeps (every pair without one): each character of the
+    shorter string (la) builds its match mask against the longer (lb) with
+    ceil(lb / 4) SWAR compares for uint8 (lb compares for 32-bit
+    codepoints) and takes 11 word operations for the window mask, the
+    claim and the two sets; the prefix compares ceil(la / 4) words (la
+    codepoints). The transposition walk, which depends on the matches, is
+    left out, so this bounds the kernel's integer work from below."""
+    la = torch.minimum(l1, l2).long()
+    lb = torch.maximum(l1, l2).long()
+    if s1.element_size() == 1:
+        compares, prefix = (lb + 3) // 4, (la + 3) // 4
+    else:
+        compares, prefix = lb, la
+    ops = torch.where(la > 0, la * (compares + 11) + prefix, 0)
+    if mask is not None:
+        ops = torch.where(mask, ops, 0)
+    return int(ops.sum())
+
+
+def jw_ops_window_scan(torch, s1, l1, l2, mask=None):
+    """The count used before the redesign: character comparisons of the
+    greedy eligibility scan, sum over i < min(l) of the window span clipped
+    to [0, max(l)), at any width, over the pairs the mask keeps."""
+    if mask is not None:
+        l1, l2 = l1[mask], l2[mask]
     la = torch.minimum(l1, l2).long()
     lb = torch.maximum(l1, l2).long()
     w = torch.clamp(lb // 2 - 1, min=0)
@@ -334,31 +382,78 @@ def res_usage(cuda_tool, libs):
 
 
 def measure(torch, name, plain_fn, kernel_fn, args, ops_fn):
-    """Kernel vs plain version on ``args``: equality, median times, and the
-    bound: the larger of the bytes moved (inputs once, output once) over
-    the HBM rate and the integer operations over the INT32 rate."""
-    s1, s2, l1, l2 = args
-    got, want = kernel_fn(*args), plain_fn(*args)
+    """Kernel vs plain version on ``args`` (s1, s2, l1, l2[, mask]):
+    equality, median times, and the bound: the larger of the bytes moved
+    (inputs once, output once; with a mask, the mask, the output and only
+    the kept pairs' rows and lengths) over the HBM rate and the integer
+    operations over the INT32 rate."""
+    s1, s2, l1, l2 = args[:4]
+    mask = args[4] if len(args) > 4 else None
+    kw = {} if mask is None else {"mask": mask}
+    got, want = kernel_fn(*args[:4], **kw), plain_fn(*args[:4], **kw)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel differs from plain on {tuple(s1.shape)}")
     err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
     n = s1.shape[0]
-    nbytes = 2 * s1.numel() * s1.element_size() + 2 * 4 * n + 4 * n
-    ops = ops_fn(torch, s1, l1, l2)
+    pair_bytes = 2 * s1.shape[1] * s1.element_size() + 2 * 4
+    kept = n if mask is None else int(mask.sum())
+    nbytes = kept * pair_bytes + 4 * n + (0 if mask is None else n)
+    ops = ops_fn(torch, s1, l1, l2, **kw)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return {
         "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: kernel_fn(*args)),
-        "call_ms": cuda_ms(torch, lambda: kernel_fn(*args), device_only=False),
-        "plain_ms": cuda_ms(torch, lambda: plain_fn(*args), device_only=False),
+        "ms": cuda_ms(torch, lambda: kernel_fn(*args[:4], **kw)),
+        "call_ms": cuda_ms(torch, lambda: kernel_fn(*args[:4], **kw), device_only=False),
+        "plain_ms": cuda_ms(torch, lambda: plain_fn(*args[:4], **kw), device_only=False),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "shape": [n, s1.shape[1]],
         "dtype": str(s1.dtype).replace("torch.", ""),
+        "pairs_computed": kept,
         "bytes": nbytes,
         "int_ops": ops,
     }
+
+
+def host_ms(torch, fn, runs=STEP_RUNS, warmup=3):
+    """Median host milliseconds of fn() from the call to a synchronize
+    after it, and fn()'s last result."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def two_phase_step_ms(torch, gammas, pc, aux, thresholds):
+    """One column's whole two-phase step on one batch (bound, survivors,
+    kernel, levels): median host ms to a synchronize, and its levels."""
+    return host_ms(torch, lambda: gammas._jw_two_phase(pc, aux, thresholds))
+
+
+def bound_ms(torch, jw_bound, pc, aux):
+    """The step's first part alone, the Jaro-Winkler upper bound of every
+    pair of the batch: median host ms to a synchronize."""
+    (cl, pl), (cr, pr) = aux
+    return host_ms(torch, lambda: jw_bound.jw_upper_bound(cl, pl, cr, pr, pc.len_l, pc.len_r))[0]
+
+
+def first_batch(torch, gammas, linker, column):
+    """The main path's first pair batch of ``column`` on the card, as the
+    gamma program builds it: (PairColumn, JW-bound aux lanes)."""
+    prog = gammas.GammaProgram(linker.settings, linker._table, device="cuda")
+    b = int(linker.settings["pair_batch_size"])
+    idx = [torch.from_numpy(np.asarray(a[:b], np.int64)).cuda()
+           for a in (linker._pairs.idx_l, linker._pairs.idx_r)]
+    ctx = gammas.PairContext(prog._layout, prog._packed.index_select(0, idx[0]),
+                             prog._packed.index_select(0, idx[1]))
+    return ctx.col(column), ctx.jw_aux(column)
 
 
 KERNELS = {
@@ -409,6 +504,7 @@ def main() -> int:
     import pandas
 
     import splink_tpu_torch
+    from splink_tpu_torch import gammas
     from splink_tpu_torch.ops import strings, strings_cuda
 
     smi = subprocess.run(
@@ -432,10 +528,12 @@ def main() -> int:
             for kind in ("u8", "u32"):
                 if f"{name}/{kind}/w{w}" not in usage:
                     raise AssertionError(f"cuobjdump reports no {name}/{kind}/w{w}: {usage}")
-    for w in strings_cuda.VARIANT_WORDS["levenshtein"]:
-        frame = usage[f"levenshtein/u8/w{w}"]["stack_bytes"]
+    zero_frames = [f"levenshtein/u8/w{w}" for w in strings_cuda.VARIANT_WORDS["levenshtein"]]
+    zero_frames += [f"jaro_winkler/{k}/w{w}" for w in (1, 2) for k in ("u8", "u32")]
+    for variant in zero_frames:
+        frame = usage[variant]["stack_bytes"]
         if frame != 0:
-            raise AssertionError(f"levenshtein u8 w{w}: stack frame {frame} bytes, expected 0")
+            raise AssertionError(f"{variant}: stack frame {frame} bytes, expected 0")
 
     # -- kernels vs plain versions on random pairs and the edge cases ----
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -444,16 +542,23 @@ def main() -> int:
     for width in CHECK_WIDTHS:
         n = KERNEL_CHECK_PAIRS if width <= 32 else WIDE_CHECK_PAIRS
         for wide in (False, True):
-            check_kernels(torch, strings, strings_cuda, random_pairs(torch, n, width, wide, gen))
+            check_kernels(torch, strings, strings_cuda, random_pairs(torch, n, width, wide, gen),
+                          gen)
             dtype = torch.int32 if wide else torch.uint8
             checked.append(f"{n}x{width}-" + ",".join(
                 "{}-{}-w{}".format(k, *strings_cuda.kernel_variant(k, width, dtype))
                 for k in KERNELS))
-    check_kernels(torch, strings, strings_cuda, edge_pairs(torch))
+    check_kernels(torch, strings, strings_cuda, edge_pairs(torch), gen)
     checked.append("edge_cases")
-    check_s = time.perf_counter() - t0
     # a uniform large batch beside the main path's own shapes (below)
     big = random_pairs(torch, KERNEL_CHECK_PAIRS, 24, False, gen)
+    for density in MASK_DENSITIES:
+        mask = torch.rand(KERNEL_CHECK_PAIRS, generator=gen, device="cuda") < density
+        check_masked(torch, strings_cuda.jaro_winkler_cuda(*big, mask=mask),
+                     strings.jaro_winkler_plain(*big, mask=mask),
+                     f"2M x 24 at density {density}")
+        checked.append(f"jaro_winkler-masked-2000000x24-density{density}-kept{int(mask.sum())}")
+    check_s = time.perf_counter() - t0
     at_2m = {
         name: measure(torch, name, getattr(strings, plain), getattr(strings_cuda, wrap), big, ops)
         for name, (_, plain, wrap, ops) in KERNELS.items()
@@ -483,9 +588,16 @@ def main() -> int:
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"the main path launched no {k} kernel")
-
     p = df_e["match_probability"].to_numpy()
     n_pairs = linker._pairs.n_pairs
+    # one masked w1 launch per Jaro-Winkler column and batch, nothing else
+    jw_cols = [c for c in SETTINGS["comparison_columns"]
+               if c["comparison"]["kind"] == "jaro_winkler"]
+    want_jw = len(jw_cols) * -(-n_pairs // int(linker.settings["pair_batch_size"]))
+    jw_variants = {k: v for k, v in main_variants.items() if k.startswith("jaro_winkler/")}
+    if jw_variants != {"jaro_winkler/u8/w1/masked": want_jw}:
+        raise AssertionError(f"main path Jaro-Winkler launches {jw_variants}, expected "
+                             f"{want_jw} masked w1 launches")
     if len(df_e) != n_pairs or p.dtype != np.float32 or not np.isfinite(p).all():
         raise AssertionError("scored frame has the wrong length, dtype or non-finite values")
     if (p < 0).any() or (p > 1).any():
@@ -511,23 +623,75 @@ def main() -> int:
          peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del df_e
 
-    # -- each kernel at the main path's shapes: equality, times, bound ------
-    rows = []
-    for name, (replaces, plain, wrap, ops) in KERNELS.items():
-        rows.append({
+    # -- the masked kernel on the main path's first batch; each kernel at
+    # -- the main path's shapes: equality, times, bound ---------------------
+    jw_batch = captured["jaro_winkler"]  # first_name, first batch, survivor mask
+    surv = jw_batch[4]
+    check_masked(torch, strings_cuda.jaro_winkler_cuda(*jw_batch[:4], mask=surv),
+                 strings.jaro_winkler_plain(*jw_batch[:4], mask=surv),
+                 f"main path batch {tuple(jw_batch[0].shape)}, {int(surv.sum())} survivors")
+    jw_survivors = tuple(a[surv].contiguous() for a in jw_batch[:4])
+
+    def row(name, kernel, args, forms, launched, fn=None, **extra):
+        replaces, plain, wrap, ops = KERNELS[kernel]
+        return {
             "name": name, "route": "cuda",
-            "source": f"splink_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-            "launches": launches[name],
-            **measure(torch, name, getattr(strings, plain), getattr(strings_cuda, wrap),
-                      captured[name], ops),
+            "source": f"splink_tpu_torch/csrc/{kernel}.cu", "replaces": replaces,
+            "launches": launched,
+            **measure(torch, name, getattr(strings, plain),
+                      fn or getattr(strings_cuda, wrap), args, ops),
             "library_ms": None,
-            "at_2M_pairs_w24": at_2m[name],
-            "res_usage": {k: v for k, v in usage.items() if k.startswith(name + "/")},
-        })
+            "res_usage": {k: usage[k] for k in forms},
+            **extra,
+        }
+
+    jw_w1 = ["jaro_winkler/u8/w1"]
+    rows = [
+        row("jaro_winkler", "jaro_winkler", jw_batch, jw_w1, launches["jaro_winkler"],
+            form="w1, masked: the main path's first batch and its survivor mask",
+            variant_launches=jw_variants),
+        row("jaro_winkler/dense_survivors", "jaro_winkler", jw_survivors, jw_w1,
+            launches["jaro_winkler"],
+            form="w1, dense: the same batch's survivors compacted first (the CPU's form)"),
+        {"name": "jaro_winkler/dense_2M_w24", "route": "cuda",
+         "source": "splink_tpu_torch/csrc/jaro_winkler.cu",
+         "replaces": KERNELS["jaro_winkler"][0], "launches": launches["jaro_winkler"],
+         **at_2m["jaro_winkler"], "library_ms": None, "res_usage": {k: usage[k] for k in jw_w1},
+         "form": "w1, dense: 2M uniform pairs of width 24"},
+        row("levenshtein", "levenshtein", captured["levenshtein"], ["levenshtein/u8/w1"],
+            launches["levenshtein"], at_2M_pairs_w24=at_2m["levenshtein"],
+            form="w1: the main path's first batch"),
+    ]
     s1, _, l1, l2 = captured["levenshtein"]
     emit("kernel_timing", kernels=[r["name"] for r in rows],
+         jaro_winkler_int_ops={
+             "this_kernel": jw_ops(torch, jw_batch[0], *jw_batch[2:4], mask=surv),
+             "window_scan_count": jw_ops_window_scan(torch, jw_batch[0], *jw_batch[2:4],
+                                                     mask=surv)},
          levenshtein_int_ops={"this_kernel": lev_ops(torch, s1, l1, l2),
                               "one_word_count": lev_ops_one_word(torch, s1, l1, l2)})
+
+    # -- the whole two-phase step of one column on the first batch, masked
+    # -- (the card's form) and compacted first (the CPU's form) -------------
+    column = jw_cols[0]["col_name"]
+    thresholds = tuple(jw_cols[0]["comparison"]["thresholds"])
+    pc, aux = first_batch(torch, gammas, linker, column)
+    step = {}
+    masked_form = gammas._survivor_levels
+    for form in ("masked", "compacted", "compacted", "masked"):
+        gammas._survivor_levels = getattr(gammas, f"_survivor_levels_{form}")
+        ms, lvl = two_phase_step_ms(torch, gammas, pc, aux, thresholds)
+        step.setdefault(form, []).append(ms)
+        step[f"{form}_levels"] = lvl
+    gammas._survivor_levels = masked_form
+    if not torch.equal(step.pop("masked_levels"), step.pop("compacted_levels")):
+        raise AssertionError("two-phase levels differ between the masked and compacted forms")
+    from splink_tpu_torch.ops import jw_bound
+
+    emit("two_phase_step", column=column, pairs=int(pc.len_l.shape[0]),
+         survivors=int(surv.sum()), host_ms_to_synchronize=step,
+         bound_only_host_ms=bound_ms(torch, jw_bound, pc, aux))
+    del pc, aux, jw_survivors
 
     # -- parity: a 20,000-row subset on the card and on the CPU -------------
     sub = df[df["blk"] < SUBSET_ROWS // 32].reset_index(drop=True)
@@ -536,19 +700,48 @@ def main() -> int:
          em_updates={"cuda": gpu._last_em_result.n_updates,
                      "cpu": cpu._last_em_result.n_updates})
 
-    # -- wide: columns of max_string_length 64, on the card and on the CPU --
+    # -- wide: columns of max_string_length 64 and 96, on the card and the CPU
     wdf = make_addresses(SUBSET_ROWS, SEED + 1)
     wg, wgdf, _, wdp, wide_variants = cuda_vs_cpu(splink_tpu_torch, strings_cuda,
                                                   WIDE_SETTINGS, wdf)
+    multi_word = {k: v for k, v in wide_variants.items()
+                  if v > 0 and re.search(r"/w(\d+)", k).group(1) != "1"}
     for name in KERNELS:
-        if not any(v > 0 and k.startswith(name + "/") and not k.endswith("/w1")
-                   for k, v in wide_variants.items()):
+        if not any(k.startswith(name + "/") for k in multi_word):
             raise AssertionError(f"the wide run launched no multi-word {name} kernel: "
                                  f"{wide_variants}")
+    wide_cols = ("address", "notes", "employer")
+    for form in ("jaro_winkler/u8/w2/masked", "jaro_winkler/u8/w0/masked"):
+        if not wide_variants.get(form):
+            raise AssertionError(f"the wide run launched no {form}: {wide_variants}")
     emit("wide", rows=len(wdf), pairs=wg._pairs.n_pairs,
-         widths={c: wg._table.strings[c].width for c in ("address", "employer")},
+         widths={c: wg._table.strings[c].width for c in wide_cols},
          variant_launches=wide_variants, max_abs_dp=wdp,
-         gamma_levels={c: np.unique(wgdf[f"gamma_{c}"]).tolist() for c in ("address", "employer")})
+         gamma_levels={c: np.unique(wgdf[f"gamma_{c}"]).tolist() for c in wide_cols})
+    # Jaro-Winkler's W = 2 form against the generic one (timed for the first
+    # time) at the wide phase's width 64; their launches are the wide run's
+    # (their path: columns of width 33-64 and wider ones)
+    w64 = random_pairs(torch, WIDE_CHECK_PAIRS, 64, False, gen)
+
+    def generic(s1, s2, l1, l2, mask=None):
+        out = torch.empty(s1.shape[0], dtype=torch.float32, device=s1.device)
+        return strings_cuda._launch("jaro_winkler", out, s1, s2, l1, l2, 0.1, 0.7,
+                                    mask=mask, words=0)
+
+    launched = lambda w: sum(v for k, v in wide_variants.items()  # noqa: E731
+                             if k.startswith(f"jaro_winkler/u8/w{w}"))
+    two_words = row("jaro_winkler/w2_w64", "jaro_winkler", w64, ["jaro_winkler/u8/w2"],
+                    launched(2), form="w2, dense: uniform pairs of width 64",
+                    launches_from="wide phase")
+    generic_row = row("jaro_winkler/generic_w64", "jaro_winkler", w64, ["jaro_winkler/u8/w0"],
+                      launched(0), fn=generic,
+                      form="w0 (generic), dense: the same pairs of width 64",
+                      launches_from="wide phase")
+    if not two_words["ms"] < generic_row["ms"]:
+        raise AssertionError(f"the W = 2 form ({two_words['ms']} ms) is not faster than the "
+                             f"generic one ({generic_row['ms']} ms) at width 64")
+    rows[3:3] = [two_words, generic_row]
+    del w64
 
     # -- model JSON round trip on the card ------------------------------------
     out_dir = os.path.join(strings_cuda.build_dir(), "chip_smoke")

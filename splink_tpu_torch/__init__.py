@@ -7,11 +7,13 @@ splink_tpu; model JSON files are interchangeable between the two packages.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument they raise. The two string
 kernels of the reference's TPU path (Jaro-Winkler, Levenshtein) are
-hand-written CUDA (csrc/strings.cu), built with nvcc at first use.
+hand-written CUDA (csrc/jaro_winkler.cu, csrc/levenshtein.cu, sharing
+csrc/common.cuh), built with nvcc at first use.
 """
 
+from ._device import resolve_device
 from .em import EMResult, run_em, score_pairs, score_pairs_with_intermediates
-from .linker import Splink, load_from_json, resolve_device
+from .linker import Splink, load_from_json
 from .models.fellegi_sunter import FSParams, SufficientStats
 from .params import (
     Params,

@@ -53,41 +53,6 @@
 namespace splink {
 namespace {
 
-// One 16-byte asynchronous copy global -> shared (Ampere and later).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// Wait for every cp.async this thread issued.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Copy `bytes` contiguous bytes from global memory into shared memory with
-// the whole block: 16-byte cp.async where the source is 16-byte aligned
-// (dst always is), single bytes otherwise and for the ragged tail. The
-// caller waits (cp_async_wait_all) and synchronises the block.
-__device__ __forceinline__ void stage_tile(unsigned char* dst, const unsigned char* src,
-                                           int bytes) {
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
-    const int n16 = bytes >> 4;
-    for (int k = threadIdx.x; k < n16; k += blockDim.x) cp_async16(dst + 16 * k, src + 16 * k);
-    done = n16 << 4;
-  }
-  for (int k = done + threadIdx.x; k < bytes; k += blockDim.x) dst[k] = src[k];
-}
-
-// The four bytes at smem + off as one little-endian word, for any `off`:
-// one aligned load where off is a multiple of 4, else two and a funnel
-// shift (reads at most 3 bytes past off + 4; callers leave that slack).
-__device__ __forceinline__ uint32_t load_word(const unsigned char* smem, int off) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(smem + (off & ~3));
-  if ((off & 3) == 0) return w[0];
-  return __funnelshift_r(w[0], w[1], 8 * (off & 3));
-}
-
 // One word of the blocked Myers/Hyyro step (the form of Hyyro 2003 that
 // edlib implements): advances the vertical deltas (pv, mv) of 32 pattern
 // rows by one text column, given the match mask `eq` and the horizontal
@@ -107,63 +72,6 @@ __device__ __forceinline__ int advance(uint32_t& pv, uint32_t& mv, uint32_t eq, 
   mv = ph & xv;
   return hout;
 }
-
-// Match flags of the four bytes of `packed` against the character whose
-// byte is broadcast in `bc`: bit k set iff byte k equals it.
-__device__ __forceinline__ uint32_t eq4(uint32_t packed, uint32_t bc) {
-  const uint32_t y = packed ^ bc;
-  // bit 7 of each byte of t is set iff that byte of y is not zero (no
-  // carry crosses a byte: 0x7F + 0x7F < 0x100)
-  const uint32_t t = ((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y;
-  const uint32_t z = ~t & 0x80808080u;
-  // bits 7, 15, 23, 31 -> 28, 29, 30, 31; the multiplier's other products
-  // land on distinct bits below 28 or past 31, so nothing carries
-  return (z * 0x00204081u) >> 28;
-}
-
-// The per-thread pattern: uint8 packs four characters to a register
-// (8 per word), 32-bit codepoints take one register each (32 per word).
-// A step compares the text character with NG groups of four pattern
-// characters per word. Characters past a thread's own pattern only set
-// bits of rows below its last row, which never reach that row.
-template <typename T, int W>
-struct Pattern;
-
-template <int W>
-struct Pattern<uint8_t, W> {
-  uint32_t pk[8 * W];
-  // the row starts `off` bytes into the 16-byte aligned `tile`; `span`
-  // bounds the characters worth loading
-  __device__ __forceinline__ void load(const unsigned char* tile, int off, int span) {
-#pragma unroll
-    for (int k = 0; k < 8 * W; ++k) pk[k] = 4 * k < span ? load_word(tile, off + 4 * k) : 0u;
-  }
-  // match mask of word w against the character broadcast in every byte of bc
-  template <int NG>
-  __device__ __forceinline__ uint32_t eq(int w, uint32_t bc) const {
-    uint32_t m = 0u;
-#pragma unroll
-    for (int k = 0; k < NG; ++k) m |= eq4(pk[8 * w + k], bc) << (4 * k);
-    return m;
-  }
-};
-
-template <int W>
-struct Pattern<uint32_t, W> {
-  uint32_t ch[32 * W];
-  __device__ __forceinline__ void load(const unsigned char* tile, int off, int span) {
-    const uint32_t* r = reinterpret_cast<const uint32_t*>(tile + off);
-#pragma unroll
-    for (int k = 0; k < 32 * W; ++k) ch[k] = k < span ? r[k] : 0u;
-  }
-  template <int NG>
-  __device__ __forceinline__ uint32_t eq(int w, uint32_t c) const {
-    uint32_t m = 0u;
-#pragma unroll
-    for (int k = 0; k < 4 * NG; ++k) m |= static_cast<uint32_t>(ch[32 * w + k] == c) << k;
-    return m;
-  }
-};
 
 // Bits 0 .. (lp - 1) - 32w of word w: the pattern's rows in that word.
 __device__ __forceinline__ uint32_t rows_of_word(int w, int lp) {
@@ -211,21 +119,6 @@ __device__ __forceinline__ int distance(const Pattern<T, W>& pat, const unsigned
   }
   return score;
 }
-
-// Rows of a block: as many as keep each staged tile near 16 KB, so that
-// several blocks share an SM at every width (a multiple of 32 threads).
-inline int threads_for(int rowbytes) {
-  if (rowbytes <= 32) return kThreads;
-  if (rowbytes <= 64) return 128;
-  if (rowbytes <= 128) return 64;
-  return 32;
-}
-
-constexpr int kSlack = 16;  // load_word may read 3 bytes past a tile
-
-// Pairs per thread: a block stages kRows * blockDim.x rows at once, so
-// each block pays its load latency and its barriers once for more work.
-constexpr int kRows = 2;
 
 // Shared memory of a block: the two tiles (each with slack, 16-byte
 // aligned), then per row its packed lengths and its place in the order,
@@ -288,26 +181,7 @@ __global__ void levenshtein_kernel(const T* __restrict__ s1, const T* __restrict
     }
   }
   __syncthreads();
-  // exclusive prefix sum of the histogram by the first warp
-  if (tid < 32) {
-    const int per = (width + 32) / 32;  // buckets per lane
-    const int lo = tid * per;
-    const int hi = min(lo + per, width + 1);
-    int sum = 0;
-    for (int k = lo; k < hi; ++k) sum += hist[k];
-    int incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-      if (tid >= d) incl += v;
-    }
-    int base = incl - sum;
-    for (int k = lo; k < hi; ++k) {
-      const int c = hist[k];
-      hist[k] = base;
-      base += c;
-    }
-  }
+  exclusive_scan_bins(hist, width + 1);
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {

@@ -14,9 +14,12 @@ pattern-id pipeline, GammaStream and PatternStream (ROADMAP.md).
 
 Two-phase Jaro-Winkler: the reference reserves a fixed survivor capacity
 per batch and redoes an overflowing batch with the exact body, because XLA
-needs static shapes. PyTorch runs eagerly, so here the survivors are
-compacted with ``torch.nonzero`` and the kernel runs on exactly those
-pairs; the gamma matrix is bit-identical to both of the reference's bodies.
+needs static shapes. Here the kernel runs on exactly the survivors. On the
+card that is one masked launch over the whole batch (the kernel reads the
+survivor mask and writes 0 elsewhere), so nothing waits on the host and no
+rows are gathered or scattered; on the CPU the survivors are compacted
+with ``torch.nonzero`` and the plain version runs on those rows. The gamma
+matrix is bit-identical to both of the reference's bodies either way.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .data import EncodedTable
 from .ops import jw_bound
 from .ops import numeric as numeric_ops
@@ -275,11 +279,38 @@ def _align_chars(a, b):
     return pad(a).contiguous(), pad(b).contiguous()
 
 
+def _survivor_levels_masked(pc: PairColumn, surv, thresholds):
+    """Levels of the survivors, 0 elsewhere, from one masked Jaro-Winkler
+    launch over the whole batch (the card's form)."""
+    sim = string_ops.jaro_winkler(
+        pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, 0.1, 0.7, mask=surv
+    )
+    return torch.where(surv, bucket_similarity(sim, thresholds, None), 0)
+
+
+def _survivor_levels_compacted(pc: PairColumn, surv, thresholds):
+    """The same levels with the survivors compacted first (the CPU's form:
+    the plain version then runs on those rows only)."""
+    pos = torch.nonzero(surv).squeeze(1)
+    sim = string_ops.jaro_winkler(
+        pc.chars_l[pos], pc.chars_r[pos], pc.len_l[pos], pc.len_r[pos], 0.1, 0.7
+    )
+    lvl = torch.zeros(surv.shape, dtype=GAMMA_DTYPE, device=surv.device)
+    lvl[pos] = bucket_similarity(sim, thresholds, None)
+    return lvl
+
+
+def _survivor_levels(pc: PairColumn, surv, thresholds):
+    if surv.is_cuda:
+        return _survivor_levels_masked(pc, surv, thresholds)
+    return _survivor_levels_compacted(pc, surv, thresholds)
+
+
 def _jw_two_phase(pc: PairColumn, aux, thresholds):
     """Two-phase Jaro-Winkler gamma (splink_tpu gammas._jw_two_phase): the
     sound upper bound excludes pairs below the lowest threshold, token-equal
     pairs take their level without a kernel, and the exact kernel runs on
-    the compacted survivors only."""
+    the survivors only."""
     (cl, pl), (cr, pr) = aux
     ub = jw_bound.jw_upper_bound(cl, pl, cr, pr, pc.len_l, pc.len_r, 0.1, 0.7)
     lowest = torch.tensor(
@@ -290,16 +321,11 @@ def _jw_two_phase(pc: PairColumn, aux, thresholds):
     equal_level = sum(1 for t in thresholds if 1.0 > t)
     equal = (pc.tok_l == pc.tok_r) & (pc.len_l > 0)
     surv = (ub >= lowest) & ~equal & ~pc.null
-    pos = torch.nonzero(surv).squeeze(1)
-    sim = string_ops.jaro_winkler(
-        pc.chars_l[pos], pc.chars_r[pos], pc.len_l[pos], pc.len_r[pos], 0.1, 0.7
-    )
     lvl = torch.where(
         equal,
         torch.tensor(equal_level, dtype=GAMMA_DTYPE, device=ub.device),
-        torch.tensor(0, dtype=GAMMA_DTYPE, device=ub.device),
+        _survivor_levels(pc, surv, thresholds),
     )
-    lvl[pos] = bucket_similarity(sim, thresholds, None)
     return apply_null(lvl, pc.null)
 
 
@@ -367,13 +393,15 @@ def _spec_gamma(col_settings: dict, ctx: PairContext, two_phase: bool):
 
 
 class GammaProgram:
-    """Gamma computation bound to one encoded table on one device."""
+    """Gamma computation bound to one encoded table on one device: ``cuda``
+    unless ``device`` names another; raises when that is CUDA and no CUDA
+    device exists."""
 
     def __init__(self, settings: dict, table: EncodedTable,
-                 float_dtype=torch.float32, device="cpu"):
+                 float_dtype=torch.float32, device=None):
         check_kinds_ported(settings)
         self.settings = settings
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_cols = len(settings["comparison_columns"])
         self.two_phase = settings.get("two_phase_jw", "on") != "off" and bool(
             jw_specs_for(settings)

@@ -29,6 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .blocking import PairIndex, block_using_rules, estimate_pair_upper_bound
 from .check_types import check_types
 from .data import EncodedTable, concat_tables, encode_table
@@ -43,18 +44,6 @@ try:  # pandas is required for the linker facade (not for the kernels)
     import pandas as pd
 except ImportError:  # pragma: no cover
     pd = None
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    another; raises when it is CUDA and no CUDA device exists."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "splink_tpu_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 def _not_ported(what: str, item: str):

@@ -143,13 +143,17 @@ def _jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold):
     return torch.where(below, jaro, boosted)
 
 
-def jaro_winkler_plain(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7):
+def jaro_winkler_plain(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None):
     """Batched Jaro-Winkler, plain PyTorch: s1, s2 (B, L) character codes,
-    l1, l2 (B,) lengths -> (B,) float32. Any width and device."""
-    return _chunked(
+    l1, l2 (B,) lengths -> (B,) float32. Any width and device. With a (B,)
+    bool ``mask``, where(mask, jw, 0), as the masked kernel launch."""
+    sim = _chunked(
         lambda a, b, c, d: _jaro_winkler_plain(a, b, c, d, prefix_scale, boost_threshold),
         s1, s2, l1, l2,
     )
+    if mask is None:
+        return sim
+    return torch.where(mask, sim, torch.zeros((), dtype=sim.dtype, device=sim.device))
 
 
 def _levenshtein_plain(s1, s2, l1, l2):
@@ -189,14 +193,15 @@ def levenshtein_ratio_plain(s1, s2, l1, l2):
     return ratio_from_distance(levenshtein_plain(s1, s2, l1, l2), l1, l2)
 
 
-def jaro_winkler(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7):
-    """Batched Jaro-Winkler: the CUDA kernel for tensors on a CUDA device,
-    the plain version for tensors on the CPU."""
+def jaro_winkler(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None):
+    """Batched Jaro-Winkler, where(mask, jw, 0) when a (B,) bool ``mask`` is
+    given: the CUDA kernel for tensors on a CUDA device, the plain version
+    for tensors on the CPU."""
     if s1.is_cuda:
         from .strings_cuda import jaro_winkler_cuda
 
-        return jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale, boost_threshold)
-    return jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold)
+        return jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale, boost_threshold, mask)
+    return jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold, mask)
 
 
 def levenshtein(s1, s2, l1, l2):

@@ -4,7 +4,8 @@ The counterpart of splink_tpu/ops/strings_pallas.py:
 
   * ``jaro_winkler_cuda`` (csrc/jaro_winkler.cu) replaces
     ``jaro_winkler_pallas`` (strings_pallas.py:123) and must equal the plain
-    version bit for bit;
+    version bit for bit; with ``mask`` it computes only the pairs where the
+    mask is true and writes 0 elsewhere, in one launch over the batch;
   * ``levenshtein_cuda`` (csrc/levenshtein.cu) replaces
     ``levenshtein_pallas`` (strings_pallas.py:225) and must equal it
     exactly.
@@ -12,10 +13,11 @@ The counterpart of splink_tpu/ops/strings_pallas.py:
 Both take one pair per thread and every column width: the kernel variant
 is the number of 32-bit words W that a pair's per-position sets need
 (``kernel_variant``). Levenshtein runs a variant with W fixed at compile
-time up to width 256, Jaro-Winkler up to width 32; wider columns run each
-kernel's generic form, for which the wrapper allocates per-pair scratch. Per pair the kernels read about 2L + 8 bytes
-and write 4; chip_smoke.py reports each one's time beside the larger of the
-bytes over 3.35 TB/s and its integer operations over the card's INT32 rate.
+time up to width 256, Jaro-Winkler up to width 64; wider columns run each
+kernel's generic form, for which the wrapper allocates per-pair scratch.
+Per pair the kernels read about 2L + 8 bytes and write 4; chip_smoke.py
+reports each one's time beside the larger of the bytes over 3.35 TB/s and
+its integer operations over the card's INT32 rate.
 
 Each source is compiled by ``nvcc`` at first use into its own library in
 ``build/splink_tpu_torch/`` beside the package (override with
@@ -23,7 +25,8 @@ Each source is compiled by ``nvcc`` at first use into its own library in
 every file under csrc/ and the flags. A failed build raises; nothing falls
 back to the plain versions. A wrapper takes CUDA tensors only: 2-D
 characters, uint8 or 32-bit codepoints (uint32, or int32 as the encoder
-carries them), and (B,) int32 lengths; anything else raises.
+carries them), (B,) int32 lengths and, for Jaro-Winkler, an optional (B,)
+bool mask; anything else raises.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 KERNELS = ("jaro_winkler", "levenshtein")  # one csrc/<name>.cu each
 # Per kernel, the word counts compiled with W fixed; 0 names the generic form
-VARIANT_WORDS = {"jaro_winkler": (1,), "levenshtein": (1, 2, 4, 8)}
+VARIANT_WORDS = {"jaro_winkler": (1, 2), "levenshtein": (1, 2, 4, 8)}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
@@ -52,12 +55,14 @@ NVCC_FLAGS = [
 # Launch counts: each wrapper adds one where it launches its kernel, and
 # nowhere else. chip_smoke.py zeroes them around the main path.
 launches = {name: 0 for name in KERNELS}
-# The same launches by variant, keyed "<kernel>/<u8|u32>/w<W>" (w0: generic).
+# The same launches by variant, keyed "<kernel>/<u8|u32>/w<W>" (w0: generic),
+# with "/masked" appended for a masked Jaro-Winkler launch.
 variant_launches: dict[str, int] = {}
 
-# When set to a dict, each wrapper records clones of the arguments of its
-# FIRST launch under its name (chip_smoke.py holds the kernels against the
-# plain versions at exactly the shapes the main path gave them).
+# When set to a dict, each wrapper records clones of the tensor arguments
+# of its FIRST launch under its name, the mask last where there is one
+# (chip_smoke.py holds the kernels against the plain versions at exactly
+# the shapes the main path gave them).
 capture: dict | None = None
 
 _lock = threading.Lock()
@@ -156,7 +161,8 @@ def _load(name: str):
                 lib = ctypes.CDLL(path)
                 fn = getattr(lib, f"splink_{kernel}")
                 fn.restype = i32
-                tail = [f32, f32, ptr, ptr] if kernel == "jaro_winkler" else [ptr, ptr]
+                # jaro_winkler: prefix_scale, boost_threshold, mask; then out, stream
+                tail = [f32, f32, ptr, ptr, ptr] if kernel == "jaro_winkler" else [ptr, ptr]
                 fn.argtypes = head + tail
                 _libs[kernel] = fn
         return _libs[name]
@@ -184,19 +190,28 @@ def _check(kernel, s1, s2, l1, l2) -> tuple[str, int]:
     return kernel_variant(kernel, s1.shape[1], s1.dtype)
 
 
-def _launch(name, out, s1, s2, l1, l2, *scalars):
+def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
     """Launch one kernel on the current stream into ``out``; counts it and
-    raises if CUDA refused the launch."""
-    kind, words = _check(name, s1, s2, l1, l2)
-    fn = _load(name)
+    raises if CUDA refused the launch. ``words`` overrides the variant
+    (chip_smoke.py times the generic form at a width a fixed one covers)."""
+    kind, chosen = _check(name, s1, s2, l1, l2)
+    words = chosen if words is None else words
     B, width = s1.shape
+    if mask is not None and (mask.device != s1.device or mask.dtype != torch.bool
+                             or mask.shape != (B,) or not mask.is_contiguous()):
+        raise ValueError(f"mask must be a contiguous ({B},) bool tensor on {s1.device}, "
+                         f"got {tuple(mask.shape)} {mask.dtype} on {mask.device}")
+    fn = _load(name)
     if not B:
         return out
     if capture is not None and name not in capture:
-        capture[name] = tuple(a.clone() for a in (s1, s2, l1, l2))
+        tensors = (s1, s2, l1, l2) if mask is None else (s1, s2, l1, l2, mask)
+        capture[name] = tuple(a.clone() for a in tensors)
     scratch = None
     if words == 0:  # generic form: 2 * ceil(width / 32) words per pair
         scratch = torch.empty(2 * -(-width // 32) * B, dtype=torch.int32, device=s1.device)
+    if name == "jaro_winkler":
+        scalars = (*scalars, None if mask is None else mask.data_ptr())
     err = fn(
         s1.data_ptr(), s2.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, width,
         s1.element_size(), words, None if scratch is None else scratch.data_ptr(),
@@ -205,17 +220,20 @@ def _launch(name, out, s1, s2, l1, l2, *scalars):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
-    key = f"{name}/{kind}/w{words}"
+    key = f"{name}/{kind}/w{words}" + ("" if mask is None else "/masked")
     variant_launches[key] = variant_launches.get(key, 0) + 1
     return out
 
 
-def jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7):
+def jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None):
     """Batched Jaro-Winkler on the card: s1, s2 (B, L) uint8 or uint32/int32
-    codepoints, any L, l1, l2 (B,) int32 -> (B,) float32. Replaces
+    codepoints, any L, l1, l2 (B,) int32 -> (B,) float32; with a (B,) bool
+    ``mask``, where(mask, jw, 0) from one launch that computes only the
+    pairs the mask keeps. Replaces
     splink_tpu/ops/strings_pallas.py:jaro_winkler_pallas."""
     out = torch.empty(s1.shape[0], dtype=torch.float32, device=s1.device)
-    return _launch("jaro_winkler", out, s1, s2, l1, l2, prefix_scale, boost_threshold)
+    return _launch("jaro_winkler", out, s1, s2, l1, l2, prefix_scale, boost_threshold,
+                   mask=mask)
 
 
 def levenshtein_cuda(s1, s2, l1, l2):

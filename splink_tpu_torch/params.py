@@ -410,12 +410,17 @@ def load_params_from_json(path: str) -> Params:
         return load_params_from_dict(json.load(f))
 
 
-def fsparams_from_numpy(lam, m, u, device="cpu", dtype=None):
+def fsparams_from_numpy(lam, m, u, device=None, dtype=None):
     """Host arrays (e.g. splink_tpu's FSParams read back as numpy, or
-    :meth:`Params.to_arrays`) -> this package's FSParams tensors."""
+    :meth:`Params.to_arrays`) -> this package's FSParams tensors on
+    ``device``: ``cuda`` unless the caller names another; raises when that
+    is CUDA and no CUDA device exists."""
     import torch
 
+    from ._device import resolve_device
     from .models.fellegi_sunter import FSParams
+
+    device = resolve_device(device)
 
     if dtype is None:
         dtype = torch.float64 if np.asarray(m).dtype == np.float64 else torch.float32

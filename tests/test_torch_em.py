@@ -56,7 +56,8 @@ def _both(G, lam, m, u, dtype, weights=None, **kw):
     ref = _ref_em(G, lam, m, u, dtype, weights, **kw)
     as_t = lambda a: torch.from_numpy(np.asarray(a, dtype))  # noqa: E731
     got = em.run_em(
-        torch.from_numpy(G), fsparams_from_numpy(np.asarray(lam, dtype), as_t(m), as_t(u)),
+        torch.from_numpy(G),
+        fsparams_from_numpy(np.asarray(lam, dtype), as_t(m), as_t(u), device="cpu"),
         weights=None if weights is None else as_t(weights), **kw,
     )
     assert got.n_updates == int(ref.n_updates)
@@ -93,7 +94,8 @@ def test_single_step_matches_hand_calculation(dtype):
     G = np.array([[1, 1], [1, 0], [0, 1], [0, 0], [-1, 1]], np.int8)
     m = [np.array([0.1, 0.9]), np.array([0.2, 0.8])]
     u = [np.array([0.8, 0.2]), np.array([0.7, 0.3])]
-    params = fsparams_from_numpy(0.5, _pack(m, 2).astype(dtype), _pack(u, 2).astype(dtype))
+    params = fsparams_from_numpy(0.5, _pack(m, 2).astype(dtype), _pack(u, 2).astype(dtype),
+                                 device="cpu")
     p = fs.match_probability(torch.from_numpy(G), params).numpy()
     rel = 1e-12 if dtype == np.float64 else 1e-6
     assert p[0] == pytest.approx(0.72 / 0.78, rel=rel)
@@ -113,7 +115,7 @@ def test_null_exclusion_from_normaliser():
     m = [np.array([0.2, 0.8]), np.array([0.4, 0.6])]
     u = [np.array([0.9, 0.1]), np.array([0.6, 0.4])]
     p_oracle, _, new_m, new_u = numpy_em_step(G, 0.3, m, u)
-    params = fsparams_from_numpy(0.3, _pack(m, 2), _pack(u, 2))
+    params = fsparams_from_numpy(0.3, _pack(m, 2), _pack(u, 2), device="cpu")
     p = fs.match_probability(torch.from_numpy(G), params)
     new = fs.update_params(fs.sufficient_stats(torch.from_numpy(G), p, 2))
     np.testing.assert_allclose(new.m.numpy(), _pack(new_m, 2), rtol=1e-10)
@@ -198,7 +200,8 @@ def test_zero_max_iterations_scores_without_em():
 
 def test_score_intermediates_null_gives_one():
     G = torch.tensor([[-1, 1]], dtype=torch.int8)
-    params = fsparams_from_numpy(0.5, [[0.1, 0.9], [0.2, 0.8]], [[0.8, 0.2], [0.7, 0.3]])
+    params = fsparams_from_numpy(0.5, [[0.1, 0.9], [0.2, 0.8]], [[0.8, 0.2], [0.7, 0.3]],
+                                 device="cpu")
     p, pm, pu = em.score_pairs_with_intermediates(G, params)
     assert float(pm[0, 0]) == 1.0 and float(pu[0, 0]) == 1.0
     assert float(pm[0, 1]) == pytest.approx(0.8)
@@ -250,7 +253,7 @@ def _params_pair(rng, dtype, C=5, L=3):
     m, u = rng.choice(pool, (C, L)), rng.choice(pool, (C, L))
     lam = rng.choice(pool[pool < 0.3])
     ref = ref_fs.FSParams(jnp.asarray(lam), jnp.asarray(m), jnp.asarray(u))
-    return ref, fsparams_from_numpy(lam, m, u)
+    return ref, fsparams_from_numpy(lam, m, u, device="cpu")
 
 
 @DTYPES
@@ -287,7 +290,8 @@ def test_em_step_matches_reference():
     new_r, delta_r = ref_fs.em_step(
         jnp.asarray(G), ref_fs.FSParams(jnp.asarray(0.2), jnp.asarray(m), jnp.asarray(u)), 3
     )
-    new_g, delta_g = fs.em_step(torch.from_numpy(G), fsparams_from_numpy(0.2, m, u), 3)
+    new_g, delta_g = fs.em_step(torch.from_numpy(G),
+                                fsparams_from_numpy(0.2, m, u, device="cpu"), 3)
     np.testing.assert_allclose(new_g.m.numpy(), np.asarray(new_r.m), rtol=0, atol=1e-12)
     np.testing.assert_allclose(new_g.u.numpy(), np.asarray(new_r.u), rtol=0, atol=1e-12)
     assert float(delta_g) == pytest.approx(float(delta_r), abs=1e-12)
@@ -295,8 +299,9 @@ def test_em_step_matches_reference():
 
 def test_fsparams_numpy_roundtrip():
     lam, m, u = np.float32(0.1), np.ones((2, 3), np.float32) / 3, np.ones((2, 3), np.float32) / 3
-    p = fsparams_from_numpy(lam, m, u)
+    p = fsparams_from_numpy(lam, m, u, device="cpu")
     assert p.m.dtype == torch.float32
     back = fsparams_to_numpy(p)
     np.testing.assert_array_equal(back[1], m)
-    assert fsparams_from_numpy(lam, m, u, dtype=torch.float64).u.dtype == torch.float64
+    p64 = fsparams_from_numpy(lam, m, u, dtype=torch.float64, device="cpu")
+    assert p64.u.dtype == torch.float64

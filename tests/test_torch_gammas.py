@@ -4,8 +4,11 @@ For every ported comparison kind (exact on strings and numbers,
 jaro_winkler at 2-4 levels, levenshtein, numeric_abs, numeric_perc,
 name_inversion), with nulls, empty strings and a wide-unicode column in the
 data, the port's gamma matrix must EQUAL the reference's, with the two-phase
-Jaro-Winkler on and off. The two-phase bound itself must equal the
-reference's, and the packed row table must be lane-for-lane the same.
+Jaro-Winkler on and off, and with its survivors scored either way: compacted
+first (the CPU's form) or by one masked call over the whole batch (the
+card's form, run here through the masked plain version). The two-phase
+bound itself must equal the reference's, and the packed row table must be
+lane-for-lane the same.
 """
 
 import copy
@@ -120,13 +123,22 @@ def _port_G(frame, pairs, **extra):
     s = _complete(complete_settings_dict, _settings(**extra))
     table = data.encode_table(frame, s)
     dtype = torch.float64 if extra.get("float64") else torch.float32
-    prog = gammas.GammaProgram(s, table, float_dtype=dtype)
+    prog = gammas.GammaProgram(s, table, float_dtype=dtype, device="cpu")
     return prog, prog.compute(*pairs, batch_size=1024)
+
+
+@pytest.fixture(params=["compacted", "masked"])
+def survivors(request, monkeypatch):
+    """Which form scores the two-phase survivors: the CPU runs the
+    compacted one unless the masked one (the card's) is put in its place."""
+    form = getattr(gammas, f"_survivor_levels_{request.param}")
+    monkeypatch.setattr(gammas, "_survivor_levels", form)
+    return request.param
 
 
 @pytest.mark.parametrize("two_phase", ["on", "off"])
 @pytest.mark.parametrize("float64", [False, True])
-def test_gamma_matrix_equals_reference(frame, pairs, two_phase, float64):
+def test_gamma_matrix_equals_reference(frame, pairs, two_phase, float64, survivors):
     want = _reference_G(frame, pairs, two_phase_jw=two_phase, float64=float64)
     prog, got = _port_G(frame, pairs, two_phase_jw=two_phase, float64=float64)
     assert prog.two_phase == (two_phase == "on")
@@ -136,16 +148,16 @@ def test_gamma_matrix_equals_reference(frame, pairs, two_phase, float64):
     assert (got == -1).any() and (got == 3).any()  # nulls and top levels occur
 
 
-def test_two_phase_equals_exact_within_port(frame, pairs):
+def test_two_phase_equals_exact_within_port(frame, pairs, survivors):
     _, on = _port_G(frame, pairs, two_phase_jw="on")
     _, off = _port_G(frame, pairs, two_phase_jw="off")
     np.testing.assert_array_equal(on, off)
 
 
-def test_all_survivor_batch(pairs):
-    """Every pair survives the bound (shared 4-char prefixes): the eager
-    compaction scores them all, where the reference needed its
-    overflow-redo twin."""
+def test_all_survivor_batch(pairs, survivors):
+    """Every pair survives the bound (shared 4-char prefixes): the
+    survivors are all scored, where the reference needed its overflow-redo
+    twin."""
     df = pd.DataFrame({"unique_id": np.arange(300),
                        "first_name": [f"prefix{i:04d}" for i in range(300)]})
     cols = [COLUMNS[0]]
@@ -153,7 +165,8 @@ def test_all_survivor_batch(pairs):
     rs = _complete(ref_complete, copy.deepcopy(s))
     want = ref_gammas.GammaProgram(rs, ref_data.encode_table(df, rs)).compute(*pairs, batch_size=4000)
     ps = _complete(complete_settings_dict, copy.deepcopy(s))
-    got = gammas.GammaProgram(ps, data.encode_table(df, ps)).compute(*pairs, batch_size=4000)
+    got = gammas.GammaProgram(ps, data.encode_table(df, ps), device="cpu").compute(
+        *pairs, batch_size=4000)
     np.testing.assert_array_equal(got, want)
 
 

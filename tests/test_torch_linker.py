@@ -241,6 +241,25 @@ def test_default_device_raises_without_cuda(monkeypatch, dedupe_df):
         splink_tpu_torch.Splink(settings(), df=dedupe_df)
 
 
+@pytest.mark.parametrize("entry", ["fsparams_from_numpy", "GammaProgram"])
+def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, entry):
+    """The carrier of the reference's parameters and the gamma program
+    follow the linker's device rule: cuda unless asked for the CPU."""
+    from splink_tpu_torch import data, gammas
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "fsparams_from_numpy":
+        call = lambda **kw: splink_tpu_torch.fsparams_from_numpy(  # noqa: E731
+            0.5, [[0.1, 0.9]], [[0.8, 0.2]], **kw)
+    else:
+        s = splink_tpu_torch.complete_settings_dict(settings())
+        table = data.encode_table(dedupe_df, s)
+        call = lambda **kw: gammas.GammaProgram(s, table, **kw)  # noqa: E731
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert call(device="cpu") is not None
+
+
 @pytest.mark.parametrize(
     "override",
     [

@@ -129,13 +129,13 @@ def test_eq4_flags_every_byte():
             assert _eq4(packed, c) == want
 
 
-# Levenshtein has fixed-W variants up to 8 words; Jaro-Winkler only W = 1
-# and its wide (generic) form past width 32
+# Levenshtein has fixed-W variants up to 8 words; Jaro-Winkler W = 1 and 2
+# and its wide (generic) form past width 64
 _VARIANTS = [("levenshtein", w, n) for w, n in
              [(8, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4), (200, 8), (256, 8),
               (264, 0), (1000, 0)]]
 _VARIANTS += [("jaro_winkler", w, n) for w, n in
-              [(8, 1), (32, 1), (33, 0), (64, 0), (256, 0), (264, 0)]]
+              [(8, 1), (32, 1), (33, 2), (64, 2), (65, 0), (256, 0), (264, 0)]]
 
 
 @pytest.mark.parametrize("kernel,width,words", _VARIANTS)
