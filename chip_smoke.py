@@ -17,10 +17,17 @@ times each kernel and the whole two-phase step of one batch, runs a
 20,000-row subset on the card and on the CPU for parity, runs columns of
 max_string_length 64 and 96 on the card and on the CPU (the multi-word and
 generic kernel variants, the W = 2 Jaro-Winkler form timed against the
-generic one), and round-trips the model through JSON. Every phase prints one
-JSON line; any failed check raises. The last lines are the kernel table,
-the card's name and power limit as nvidia-smi reports them, and
-{"ok": true, "device": {...}}.
+generic one), and round-trips the model through JSON. It builds the native
+host library with g++ and holds each of its functions (the encoder, the
+self and cross joins) to its numpy plain version at the main path's shapes,
+array for array, and requires the main path's encode and blocking to have
+gone through it. It drives the term-frequency path at the main path's full
+size (two flagged columns: the u-probability fold in scoring, then the
+ex-post aggregation on the card), and holds it to the CPU: the linker on a
+subset, and the device aggregation on the main path's own token ids. Every
+phase prints one JSON line; any failed check raises. The last lines are the
+kernel table, the card's name and power limit as nvidia-smi reports them,
+and {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or splink_tpu. Exits non-zero without printing a
 result when no CUDA device is available.
@@ -46,6 +53,9 @@ CHECK_WIDTHS = (8, 24, 32, 40, 64, 128, 256, 264)
 MASK_DENSITIES = (0.0, 0.002, 0.5, 1.0)  # masked-launch checks at 2M x 24
 TIMING_RUNS = 15
 STEP_RUNS = 51  # host-clock readings vary more than device times
+HOST_RUNS = 5  # the native functions and their plain versions, host clock
+TF_COLUMNS = ("first_name", "surname")
+TF_RTOL = 1e-12  # the device aggregation, card against CPU (float64 sums)
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers one call's launch
 L2_FLUSH_BYTES = 256 << 20  # read before each timed run: 5x the H100's 50 MB L2
 
@@ -91,6 +101,12 @@ WIDE_SETTINGS = {
          "comparison": {"kind": "numeric_abs", "thresholds": [1.0]}},
     ],
 }
+
+# The main path's settings with term-frequency adjustment on both names
+TF_SETTINGS = json.loads(json.dumps(SETTINGS))
+for _col in TF_SETTINGS["comparison_columns"]:
+    if _col["col_name"] in TF_COLUMNS:
+        _col["term_frequency_adjustments"] = True
 
 LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
 
@@ -467,15 +483,20 @@ KERNELS = {
 
 def cuda_vs_cpu(splink_tpu_torch, strings_cuda, settings, df):
     """The same settings and rows through the linker on the card and on the
-    CPU. Raises unless the pair sets and gamma matrices are equal and the
-    match probabilities within 1e-5. Returns the card's linker and frame,
-    the CPU's linker, the largest probability difference and the kernel
-    variants the card's run launched."""
+    CPU; with term-frequency columns, the ex-post adjustment too. Raises
+    unless the pair sets and gamma matrices are equal and every probability
+    column (match_probability, tf_match_probability,
+    tf_adjusted_match_prob) within 1e-5. Returns the card's linker and
+    frame, the CPU's linker, the largest difference of each probability
+    column and the kernel variants the card's run launched."""
     runs = {}
     for dev in ("cuda", "cpu"):
         strings_cuda.variant_launches.clear()
         lk = splink_tpu_torch.Splink(json.loads(json.dumps(settings)), df=df, device=dev)
-        runs[dev] = (lk, lk.get_scored_comparisons(), dict(strings_cuda.variant_launches))
+        frame = lk.get_scored_comparisons()
+        if any(c.get("term_frequency_adjustments") for c in settings["comparison_columns"]):
+            frame = lk.make_term_frequency_adjustments(frame)
+        runs[dev] = (lk, frame, dict(strings_cuda.variant_launches))
     (gpu, gdf, variants), (cpu, cdf, cpu_variants) = runs["cuda"], runs["cpu"]
     if cpu_variants:
         raise AssertionError(f"the CPU run launched kernels: {cpu_variants}")
@@ -484,10 +505,100 @@ def cuda_vs_cpu(splink_tpu_torch, strings_cuda, settings, df):
         raise AssertionError("pair sets differ between cuda and cpu")
     if not np.array_equal(gpu._G, cpu._G):
         raise AssertionError("gamma matrices differ between cuda and cpu")
-    dp = np.abs(gdf["match_probability"].to_numpy() - cdf["match_probability"].to_numpy())
-    if dp.max() > 1e-5:
-        raise AssertionError(f"match_probability cuda vs cpu differs by {dp.max()}")
-    return gpu, gdf, cpu, float(dp.max()), variants
+    if list(gdf.columns) != list(cdf.columns):
+        raise AssertionError("frame columns differ between cuda and cpu")
+    diffs = {}
+    for col in ("match_probability", "tf_match_probability", "tf_adjusted_match_prob"):
+        if col in gdf:
+            diffs[col] = float(np.abs(gdf[col].to_numpy() - cdf[col].to_numpy()).max())
+            if diffs[col] > 1e-5:
+                raise AssertionError(f"{col} cuda vs cpu differs by {diffs[col]}")
+    return gpu, gdf, cpu, diffs, variants
+
+
+# ----------------------------------------------------------------------
+# The native host library and the term-frequency path
+# ----------------------------------------------------------------------
+
+
+def host_median_ms(fn, runs=HOST_RUNS):
+    """Median host milliseconds of fn() over ``runs`` calls after one
+    warm-up, and fn()'s last result."""
+    out = fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def native_vs_plain(native, name, args):
+    """One native function against its plain version on ``args``: raises
+    unless every output array is equal, order and dtype included; returns
+    both median host times and the output sizes."""
+    native_ms, got = host_median_ms(lambda: getattr(native, name)(*args))
+    plain_ms, want = host_median_ms(lambda: getattr(native, f"{name}_plain")(*args))
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"native {name} differs from its plain version "
+                                 f"({g.dtype} {g.shape} vs {w.dtype} {w.shape})")
+    return {"native_ms": native_ms, "plain_ms": plain_ms,
+            "out": [[list(g.shape), str(g.dtype)] for g in got]}
+
+
+def native_phase(native, blocking, df, table):
+    """Each native function at the main path's shapes: the encoder on the
+    first_name column's 1,000,000 rows at width 16, the self join of the
+    ``blk`` groups (the main path's rule), and the cross join of the same
+    rows split in half."""
+    vals = [v if isinstance(v, str) else "" for v in df["first_name"].tolist()]
+    flat = np.frombuffer("".join(vals).encode("ascii"), np.uint8)
+    offsets = np.zeros(len(vals) + 1, np.int64)
+    np.cumsum([len(v) for v in vals], out=offsets[1:])
+    out = {"encode_fixed_width": {"rows": len(vals), "width": 16,
+                                  **native_vs_plain(native, "encode_fixed_width",
+                                                    (flat, offsets, 16))}}
+    codes = blocking._key_codes(table, ["blk"])
+    rows = np.flatnonzero(codes >= 0).astype(np.int32)
+    rows_sorted, _, starts, sizes = blocking._sort_groups(codes, rows)
+    out["self_join_pairs"] = {"groups": len(sizes), **native_vs_plain(
+        native, "self_join_pairs", (rows_sorted, starts, sizes))}
+    half = len(rows) // 2
+    lrows, lcodes, ls, lz = blocking._sort_groups(codes, rows[:half])
+    rrows, rcodes, rs, rz = blocking._sort_groups(codes, rows[half:])
+    _, li, ri = np.intersect1d(lcodes, rcodes, return_indices=True)
+    out["cross_join_pairs"] = {"groups": len(li), **native_vs_plain(
+        native, "cross_join_pairs", (lrows, ls[li], lz[li], rrows, rs[ri], rz[ri]))}
+    return out
+
+
+def zero_counts(strings_cuda, native, tf):
+    for k in strings_cuda.launches:
+        strings_cuda.launches[k] = 0
+    strings_cuda.variant_launches.clear()
+    for k in native.calls:
+        native.calls[k] = 0
+    tf.device_aggregations.clear()
+
+
+def check_path_counts(what, strings_cuda, native):
+    """Raise unless the path just driven launched every CUDA kernel and went
+    through the native library for its encode and its blocking."""
+    for k, v in strings_cuda.launches.items():
+        if v <= 0:
+            raise AssertionError(f"{what} launched no {k} kernel")
+    for k in ("encode_fixed_width", "self_join_pairs"):
+        if native.calls[k] <= 0:
+            raise AssertionError(f"{what} did not call the native {k}")
+
+
+def check_unit_interval(df, col, dtype):
+    v = df[col].to_numpy()
+    if v.dtype != dtype or not np.isfinite(v).all() or (v < 0).any() or (v > 1).any():
+        raise AssertionError(f"{col}: {v.dtype}, finite {bool(np.isfinite(v).all())}, "
+                             f"range [{np.nanmin(v)}, {np.nanmax(v)}], expected {dtype} in [0, 1]")
+    return v
 
 
 # ----------------------------------------------------------------------
@@ -504,7 +615,8 @@ def main() -> int:
     import pandas
 
     import splink_tpu_torch
-    from splink_tpu_torch import gammas
+    from splink_tpu_torch import blocking, gammas, native
+    from splink_tpu_torch import term_frequencies as tf
     from splink_tpu_torch.ops import strings, strings_cuda
 
     smi = subprocess.run(
@@ -534,6 +646,12 @@ def main() -> int:
         frame = usage[variant]["stack_bytes"]
         if frame != 0:
             raise AssertionError(f"{variant}: stack frame {frame} bytes, expected 0")
+    host_lib = native.library_path()
+    built_before = os.path.exists(host_lib)
+    t0 = time.perf_counter()
+    native.build()
+    emit("native_build", seconds=time.perf_counter() - t0, built_before=built_before,
+         command=native.build_command(os.path.relpath(host_lib)), flags=native.CXX_FLAGS)
 
     # -- kernels vs plain versions on random pairs and the edge cases ----
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -573,9 +691,7 @@ def main() -> int:
     t0 = time.perf_counter()
     df, dup_of = make_people(N_ROWS, SEED)
     gen_s = time.perf_counter() - t0
-    for k in strings_cuda.launches:
-        strings_cuda.launches[k] = 0
-    strings_cuda.variant_launches.clear()
+    zero_counts(strings_cuda, native, tf)
     strings_cuda.capture = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -584,10 +700,9 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = dict(strings_cuda.launches)
     main_variants = dict(strings_cuda.variant_launches)
+    native_calls = dict(native.calls)
     captured, strings_cuda.capture = strings_cuda.capture, None
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"the main path launched no {k} kernel")
+    check_path_counts("the main path", strings_cuda, native)
     p = df_e["match_probability"].to_numpy()
     n_pairs = linker._pairs.n_pairs
     # one masked w1 launch per Jaro-Winkler column and batch, nothing else
@@ -617,12 +732,90 @@ def main() -> int:
     emit("main_path", rows=N_ROWS, pairs=n_pairs, data_gen_s=gen_s, wall_s=wall,
          stage_s=linker.stage_seconds, em_updates=int(result.n_updates),
          em_converged=bool(result.converged), launches=launches,
-         variant_launches=main_variants,
+         variant_launches=main_variants, native_calls=native_calls,
          planted_pairs=int(planted.sum()), planted_median_p=med_dup,
          other_p99=p99_other, lambda_=float(linker.params.params["λ"]),
          peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del df_e
 
+    # -- the native host library against its plain versions at the main
+    # -- path's shapes --------------------------------------------------------
+    emit("native", **native_phase(native, blocking, df, linker._table))
+
+    # -- the term-frequency path at full size: the fold in scoring, then the
+    # -- ex-post aggregation on the card ---------------------------------------
+    zero_counts(strings_cuda, native, tf)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tf_linker = splink_tpu_torch.Splink(json.loads(json.dumps(TF_SETTINGS)), df=df)
+    tf_e = tf_linker.get_scored_comparisons()
+    tf_adj = tf_linker.make_term_frequency_adjustments(tf_e)
+    tf_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()  # the part of tf_adjust that checks the frame's alignment
+    if not tf_linker._df_e_aligned_with_pairs(tf_e):
+        raise AssertionError("the scored frame is not aligned with its pairs")
+    aligned_check_s = time.perf_counter() - t0
+    tf_launches = dict(strings_cuda.launches)
+    tf_variants = dict(strings_cuda.variant_launches)
+    tf_native_calls = dict(native.calls)
+    aggregations = dict(tf.device_aggregations)
+    check_path_counts("the term-frequency path", strings_cuda, native)
+    if aggregations != {"cuda": len(TF_COLUMNS)}:
+        raise AssertionError(f"device aggregations {aggregations}, expected "
+                             f"{len(TF_COLUMNS)} on cuda")
+    tf_jw = {k: v for k, v in tf_variants.items() if k.startswith("jaro_winkler/")}
+    if tf_jw != {"jaro_winkler/u8/w1/masked": want_jw}:
+        raise AssertionError(f"term-frequency path Jaro-Winkler launches {tf_jw}")
+    if tf_linker._pairs.n_pairs != n_pairs or len(tf_adj) != n_pairs:
+        raise AssertionError("the term-frequency path scored another pair set")
+    cols = list(tf_adj.columns)
+    if cols[:3] != ["tf_adjusted_match_prob", "match_probability", "tf_match_probability"]:
+        raise AssertionError(f"term-frequency frame columns {cols[:3]}")
+    tf_p = check_unit_interval(tf_adj, "tf_match_probability", np.float32)
+    check_unit_interval(tf_adj, "tf_adjusted_match_prob", np.float64)
+    table = tf_linker._table
+    il, ir = tf_linker._pairs.idx_l, tf_linker._pairs.idx_r
+    disagree_counts = {}
+    for col in TF_COLUMNS:
+        adj = check_unit_interval(tf_adj, f"{col}_adj", np.float64)
+        tid = table.strings[col].token_ids
+        tl, tr = tid[il], tid[ir]
+        disagree = (tl != tr) | (tl < 0)
+        if not (adj[disagree] == 0.5).all():
+            raise AssertionError(f"{col}_adj is not exactly 0.5 on every disagreeing pair")
+        disagree_counts[col] = int(disagree.sum())
+    planted_tf = dup_of[tf_adj["unique_id_r"].to_numpy()] == tf_adj["unique_id_l"].to_numpy()
+    emit("term_frequencies", rows=N_ROWS, pairs=n_pairs, columns=TF_COLUMNS, wall_s=tf_wall,
+         stage_s=tf_linker.stage_seconds, launches=tf_launches, variant_launches=tf_variants,
+         native_calls=tf_native_calls, device_aggregations=aggregations,
+         disagreeing_pairs=disagree_counts, alignment_check_s=aligned_check_s,
+         peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         planted_median_tf_p=float(np.median(tf_p[planted_tf])),
+         planted_median_tf_adjusted=float(np.median(
+             tf_adj["tf_adjusted_match_prob"].to_numpy()[planted_tf])),
+         other_p99_tf_p=float(np.quantile(tf_p[~planted_tf], 0.99)))
+
+    # the device aggregation on the card against the CPU, on the main path's
+    # surname token ids and probabilities
+    tid = table.strings["surname"].token_ids
+    agg_in = (tid[il], tid[ir], tf_adj["match_probability"].to_numpy(),
+              float(tf_linker.params.params["λ"]), table.strings["surname"].n_tokens)
+    agg = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        agg[dev] = tf.compute_token_adjustment_device(*agg_in, device=dev)
+        agg[f"{dev}_s"] = time.perf_counter() - t0
+    (g_adj, g_lam, g_cnt), (c_adj, c_lam, c_cnt) = agg["cuda"], agg["cpu"]
+    if not np.array_equal(g_cnt, c_cnt):
+        raise AssertionError("device aggregation counts differ between cuda and cpu")
+    rel = {}
+    for name, g, c in (("lambda", g_lam, c_lam), ("adj", g_adj, c_adj)):
+        rel[name] = float(np.max(np.abs(g - c) / np.maximum(np.abs(c), 1e-300)))
+        if rel[name] > TF_RTOL:
+            raise AssertionError(f"device aggregation {name} cuda vs cpu differs by "
+                                 f"{rel[name]} relative")
+    agg_times = {k: agg[k] for k in ("cuda_s", "cpu_s")}
+    del tf_e, tf_adj, agg, agg_in
     # -- the masked kernel on the main path's first batch; each kernel at
     # -- the main path's shapes: equality, times, bound ---------------------
     jw_batch = captured["jaro_winkler"]  # first_name, first batch, survivor mask
@@ -649,7 +842,7 @@ def main() -> int:
     rows = [
         row("jaro_winkler", "jaro_winkler", jw_batch, jw_w1, launches["jaro_winkler"],
             form="w1, masked: the main path's first batch and its survivor mask",
-            variant_launches=jw_variants),
+            variant_launches=jw_variants, tf_path_launches=tf_launches["jaro_winkler"]),
         row("jaro_winkler/dense_survivors", "jaro_winkler", jw_survivors, jw_w1,
             launches["jaro_winkler"],
             form="w1, dense: the same batch's survivors compacted first (the CPU's form)"),
@@ -660,7 +853,8 @@ def main() -> int:
          "form": "w1, dense: 2M uniform pairs of width 24"},
         row("levenshtein", "levenshtein", captured["levenshtein"], ["levenshtein/u8/w1"],
             launches["levenshtein"], at_2M_pairs_w24=at_2m["levenshtein"],
-            form="w1: the main path's first batch"),
+            form="w1: the main path's first batch",
+            tf_path_launches=tf_launches["levenshtein"]),
     ]
     s1, _, l1, l2 = captured["levenshtein"]
     emit("kernel_timing", kernels=[r["name"] for r in rows],
@@ -696,14 +890,21 @@ def main() -> int:
     # -- parity: a 20,000-row subset on the card and on the CPU -------------
     sub = df[df["blk"] < SUBSET_ROWS // 32].reset_index(drop=True)
     gpu, gdf, cpu, dp, _ = cuda_vs_cpu(splink_tpu_torch, strings_cuda, SETTINGS, sub)
-    emit("parity", rows=len(sub), pairs=gpu._pairs.n_pairs, max_abs_dp=dp,
+    emit("parity", rows=len(sub), pairs=gpu._pairs.n_pairs, max_abs_dp=dp["match_probability"],
          em_updates={"cuda": gpu._last_em_result.n_updates,
                      "cpu": cpu._last_em_result.n_updates})
+    tgpu, _, _, tdp, _ = cuda_vs_cpu(splink_tpu_torch, strings_cuda, TF_SETTINGS, sub)
+    emit("term_frequencies_parity", rows=len(sub), pairs=tgpu._pairs.n_pairs, max_abs_diff=tdp,
+         aggregation_main_path={"column": "surname", "pairs": n_pairs,
+                                "segments": int(g_cnt.size), "counts_equal": True,
+                                "max_rel_diff": rel, "cuda_s": agg_times["cuda_s"],
+                                "cpu_s": agg_times["cpu_s"]})
 
     # -- wide: columns of max_string_length 64 and 96, on the card and the CPU
     wdf = make_addresses(SUBSET_ROWS, SEED + 1)
     wg, wgdf, _, wdp, wide_variants = cuda_vs_cpu(splink_tpu_torch, strings_cuda,
                                                   WIDE_SETTINGS, wdf)
+    wdp = wdp["match_probability"]
     multi_word = {k: v for k, v in wide_variants.items()
                   if v > 0 and re.search(r"/w(\d+)", k).group(1) != "1"}
     for name in KERNELS:

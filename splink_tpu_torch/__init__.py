@@ -8,7 +8,12 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument they raise. The two string
 kernels of the reference's TPU path (Jaro-Winkler, Levenshtein) are
 hand-written CUDA (csrc/jaro_winkler.cu, csrc/levenshtein.cu, sharing
-csrc/common.cuh), built with nvcc at first use.
+csrc/common.cuh), built with nvcc at first use; the host work of encoding
+and blocking runs splink_tpu's C++ library (native/src/host_kernels.cpp),
+built with g++ at first use. Term-frequency adjustment lives in
+``term_frequencies`` (and ``Splink.make_term_frequency_adjustments``), the
+intuition report in ``intuition``; like splink_tpu, the package exports
+neither module's names.
 """
 
 from ._device import resolve_device

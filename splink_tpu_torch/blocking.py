@@ -47,9 +47,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import native
 from .check_types import check_types
 from .compat_sql import parse_blocking_rule
 from .data import EncodedTable
+from .native import _ranges
 
 logger = logging.getLogger("splink_tpu_torch")
 
@@ -103,16 +105,6 @@ def _spill_not_ported():
 # ----------------------------------------------------------------------
 # Small vectorised helpers
 # ----------------------------------------------------------------------
-
-
-def _ranges(counts: np.ndarray) -> np.ndarray:
-    """Concatenated [0..c) ranges: _ranges([2,3]) -> [0,1,0,1,2]."""
-    counts = counts.astype(np.int64)
-    total = int(counts.sum())
-    if total == 0:
-        return np.zeros(0, np.int64)
-    offsets = np.cumsum(counts) - counts  # output offset of each group
-    return np.arange(total, dtype=np.int64) - np.repeat(offsets, counts)
 
 
 def _key_codes(table: EncodedTable, cols: list[str]) -> np.ndarray:
@@ -357,18 +349,7 @@ def _iter_self_join_chunks(
             tot += counts[g2]
             g2 += 1
         g2 = max(g2, g + 1)
-        st, sz = starts[g:g2], sizes[g:g2]
-        # position k within its group pairs with the (s-1-k) following
-        # positions (the g++ host library of splink_tpu is not ported yet); span rows are contiguous in
-        # rows_sorted so global positions are span-offset + local
-        pos_in_group = _ranges(sz)
-        rep = np.repeat(sz, sz) - pos_in_group - 1
-        span_len = int(sz.sum())
-        p = np.repeat(np.arange(span_len, dtype=np.int64), rep) + int(
-            st[0] if len(st) else 0
-        )
-        q = p + 1 + _ranges(rep)
-        yield rows_sorted[p], rows_sorted[q]
+        yield native.self_join_pairs(rows_sorted, starts[g:g2], sizes[g:g2])
         g = g2
 
 
@@ -451,12 +432,9 @@ def _iter_cross_join_chunks(
             g2 += 1
         g2 = max(g2, g + 1)
         span = slice(g, g2)
-        cnt = counts[span]
-        gi = np.repeat(np.arange(g2 - g, dtype=np.int64), cnt)
-        t = _ranges(cnt)
-        a = t // rz[span][gi] + ls[span][gi]
-        b = t % rz[span][gi] + rs[span][gi]
-        yield lrows[a], rrows[b]
+        yield native.cross_join_pairs(
+            lrows, ls[span], lz[span], rrows, rs[span], rz[span]
+        )
         g = g2
 
 

@@ -222,13 +222,13 @@ def encode_string_column(values, width: int = DEFAULT_STRING_WIDTH) -> EncodedSt
     width = min(_pad_width(max_len), _pad_width(width))
     ascii_only = all(map(str.isascii, ustrs))  # C-level, short-circuits
     if ascii_only:
-        # flat buffer + offsets, packed by the host helper
-        from . import _host
+        # flat buffer + offsets, packed by the native host library
+        from . import native
 
         flat = np.frombuffer("".join(ustrs).encode("ascii"), dtype=np.uint8)
         offsets = np.zeros(len(ustrs) + 1, np.int64)
         np.cumsum(ulens, out=offsets[1:])
-        ubytes, ulengths = _host.encode_fixed_width(flat, offsets, width)
+        ubytes, ulengths = native.encode_fixed_width(flat, offsets, width)
     else:
         ubytes = np.zeros((len(ustrs), width), dtype=np.uint32)
         ulengths = np.zeros(len(ustrs), dtype=np.int32)

@@ -4,10 +4,12 @@ Same API shape as splink_tpu/linker.py — ``Splink(settings, df=... |
 df_l=..., df_r=...)``, ``get_scored_comparisons()``,
 ``estimate_parameters()``, ``manually_apply_fellegi_sunter_weights()``,
 ``save_model_as_json()`` and module-level ``load_from_json`` — plus a
-``device`` argument. The pipeline: host encode -> host hash-join blocking ->
-gamma matrix on the device (hand-written CUDA string kernels on a GPU) ->
+``device`` argument, and ``make_term_frequency_adjustments()``. The
+pipeline: host encode and host hash-join blocking (the native host library)
+-> gamma matrix on the device (hand-written CUDA string kernels on a GPU) ->
 EM with the gamma matrix resident on the device -> batched scoring into the
-reference's output frame.
+reference's output frame, with the term-frequency u-probability fold
+(``tf_match_probability``) when a comparison is flagged.
 
 Device rule: with no ``device`` the linker runs on ``cuda`` and raises when
 no CUDA device exists; it never carries on quietly on the CPU. Pass
@@ -33,10 +35,23 @@ from ._device import resolve_device
 from .blocking import PairIndex, block_using_rules, estimate_pair_upper_bound
 from .check_types import check_types
 from .data import EncodedTable, concat_tables, encode_table
-from .em import run_em, score_pairs, score_pairs_with_intermediates
+from .em import (
+    run_em,
+    score_pairs,
+    score_pairs_with_intermediates,
+    score_pairs_with_intermediates_logits,
+    score_pairs_with_logits,
+)
 from .gammas import GammaProgram, check_kinds_ported
 from .params import Params, fsparams_from_numpy, load_params_from_json
 from .settings import comparison_column_name, complete_settings_dict
+from .term_frequencies import (
+    make_adjustment_for_term_frequencies,
+    make_tf_fold_fn,
+    term_frequency_columns,
+    tf_fold_spec,
+    tf_log_table,
+)
 
 logger = logging.getLogger("splink_tpu_torch")
 
@@ -68,8 +83,6 @@ def _check_resident_settings(settings: dict) -> None:
     if settings.get("device_pair_generation") == "on":
         raise _not_ported("device_pair_generation: 'on'",
                           "overlap / pattern / streamed / spill regimes")
-    if any(c.get("term_frequency_adjustments") for c in settings["comparison_columns"]):
-        raise _not_ported("term_frequency_adjustments", "term frequencies")
     check_kinds_ported(settings)
 
 
@@ -108,6 +121,7 @@ class Splink:
         self._G: np.ndarray | None = None
         self._G_dev = None  # device copy of the gamma matrix
         self._last_em_result = None
+        self._tf_fold_cache = None
         # stage name -> wall seconds of this linker's last run of it
         # (synchronised with the device at the stage's end)
         self.stage_seconds: dict[str, float] = {}
@@ -294,45 +308,168 @@ class Splink:
     # Output assembly
     # ------------------------------------------------------------------
 
-    def _score_batched(self, G: np.ndarray):
+    def _score_batched(self, G: np.ndarray, want_z: bool = False):
         """Match probabilities (and, when retained, the per-column m/u
-        lookups) in pair_batch_size batches on the device."""
+        lookups; with ``want_z``, the fold logits that the TF fold adds its
+        deltas to) in pair_batch_size batches on the device. Returns host
+        arrays (p, prob_m, prob_u, z), None for what was not asked for."""
         lam, m, u, _ = self.params.to_arrays()
         params = fsparams_from_numpy(lam, m, u, self.device, self._float_dtype)
         G_dev = self._gamma_tensor(G)
         want_inter = bool(self.settings["retain_intermediate_calculation_columns"])
         batch = int(self.settings["pair_batch_size"])
         out = []
-        for s in range(0, len(G), batch):
+        for s in range(0, max(len(G), 1), batch):  # one empty batch for no pairs
             Gb = G_dev[s : s + batch]
-            res = (
-                score_pairs_with_intermediates(Gb, params)
-                if want_inter
-                else (score_pairs(Gb, params),)
-            )
+            if want_inter and want_z:
+                res = score_pairs_with_intermediates_logits(Gb, params)
+            elif want_inter:
+                res = score_pairs_with_intermediates(Gb, params)
+            elif want_z:
+                res = score_pairs_with_logits(Gb, params)
+            else:
+                res = (score_pairs(Gb, params),)
             out.append(res)
-        if not out:
-            empty = torch.zeros((0, G.shape[1]), dtype=self._float_dtype).numpy()
-            return empty[:, 0], empty, empty
         cols = [torch.cat(parts).cpu().numpy() for parts in zip(*out)]
         p = cols[0]
-        return (p, cols[1], cols[2]) if want_inter else (p, None, None)
+        prob_m, prob_u = (cols[1], cols[2]) if want_inter else (None, None)
+        # the logit rides last in every variant that computes it
+        return p, prob_m, prob_u, cols[-1] if want_z else None
+
+    # ------------------------------------------------------------------
+    # Term frequencies
+    # ------------------------------------------------------------------
+
+    def _tf_fold_ctx(self):
+        """The TF u-probability fold's context, memoised: ``(spec, tids,
+        log_tables)`` — term_frequencies.tf_fold_spec entries restricted to
+        the encoded string columns, each column's (n_rows,) int32 token ids
+        and its float64 log relative-frequency table. None when
+        ``serve_tf_adjust`` is off or no flagged comparison has a token
+        column; scored frames then carry no ``tf_match_probability``."""
+        if self._tf_fold_cache is None:
+            self._tf_fold_cache = False
+            if self.settings.get("serve_tf_adjust", True):
+                table = self._ensure_encoded()
+                spec, tids, logs = [], [], []
+                for ci, name, top in tf_fold_spec(self.settings):
+                    sc = table.strings.get(name)
+                    if sc is None or not sc.n_tokens:
+                        continue
+                    tid = sc.token_ids
+                    counts = np.bincount(tid[tid >= 0], minlength=sc.n_tokens)
+                    spec.append((ci, name, top))
+                    tids.append(tid.astype(np.int32))
+                    logs.append(tf_log_table(counts))
+                if spec:
+                    self._tf_fold_cache = (tuple(spec), tids, logs)
+        return self._tf_fold_cache or None
+
+    def _tf_fold_pairs(self, z: np.ndarray, il, ir, ctx) -> np.ndarray:
+        """TF-adjusted match probabilities of the pairs (il, ir) from their
+        fold logits ``z``, in pair_batch_size batches on the device: each
+        column's token ids go to the device once and are gathered there
+        with each batch's pair index."""
+        spec, tids, logs = ctx
+        fold = make_tf_fold_fn(spec)
+        lam, m, u, _ = self.params.to_arrays()
+        u_dev = fsparams_from_numpy(lam, m, u, self.device, self._float_dtype).u
+        np_dtype = np.float64 if self.settings["float64"] else np.float32
+        logs_dev = [torch.from_numpy(t.astype(np_dtype)).to(self.device) for t in logs]
+        tids_dev = [torch.from_numpy(t).to(self.device) for t in tids]
+        n = len(z)
+        batch = int(self.settings["pair_batch_size"])
+        out = np.empty(n, np_dtype)
+        for s in range(0, n, batch):
+            e = min(s + batch, n)
+            idx = [torch.from_numpy(np.ascontiguousarray(a[s:e])).to(self.device)
+                   for a in (il, ir)]
+            args = [t.index_select(0, idx[0]) for t in tids_dev]
+            args += [t.index_select(0, idx[1]) for t in tids_dev]
+            zb = torch.from_numpy(z[s:e]).to(self.device)
+            out[s:e] = fold(zb, u_dev, *args, *logs_dev).cpu().numpy()
+        return out
+
+    def make_term_frequency_adjustments(self, df_e):
+        """Ex-post term-frequency adjustment of scored comparisons
+        (splink/__init__.py:147-163): adds ``tf_adjusted_match_prob`` and a
+        ``<col>_adj`` column per flagged column.
+
+        When df_e still corresponds row for row to this linker's pair index,
+        the per-token aggregation runs on this linker's device over the
+        encoded table's token ids, gathered there with the pair index; any
+        other frame takes the host groupby over its values."""
+        with self._timed("tf_adjust"):
+            pair_token_ids = None
+            if self._pairs is not None and self._df_e_aligned_with_pairs(df_e):
+                table = self._ensure_encoded()
+                pair_token_ids = {}
+                idx = None
+                for name in term_frequency_columns(self.settings):
+                    if name not in table.strings:
+                        continue
+                    if idx is None:
+                        idx = [torch.from_numpy(a).to(self.device)
+                               for a in (self._pairs.idx_l, self._pairs.idx_r)]
+                    sc = table.strings[name]
+                    tid = torch.from_numpy(sc.token_ids).to(self.device)
+                    pair_token_ids[name] = (
+                        tid.index_select(0, idx[0]), tid.index_select(0, idx[1]),
+                        sc.n_tokens,
+                    )
+            return make_adjustment_for_term_frequencies(
+                df_e,
+                self.params,
+                self.settings,
+                retain_adjustment_columns=True,
+                pair_token_ids=pair_token_ids,
+                device=self.device,
+            )
+
+    def _df_e_aligned_with_pairs(self, df_e) -> bool:
+        """Whether df_e still corresponds row for row to the pair index (the
+        device aggregation needs this; a sorted or filtered frame takes the
+        host groupby)."""
+        n = self._pairs.n_pairs
+        if len(df_e) != n or not df_e.index.equals(pd.RangeIndex(n)):
+            return False
+        uid = self.settings["unique_id_column_name"]
+        cols = (f"{uid}_l", f"{uid}_r")
+        if not all(c in df_e.columns for c in cols):
+            return False
+        table = self._ensure_encoded()
+        # Full-column comparison: a sampled check could miss a small
+        # permutation and misattribute probabilities to token ids.
+        for c, idx in zip(cols, (self._pairs.idx_l, self._pairs.idx_r)):
+            want = np.asarray(table.unique_id[idx])
+            if not np.array_equal(df_e[c].to_numpy(), want):
+                return False
+        return True
 
     def _build_df_e(self, G: np.ndarray):
         """The scored comparisons DataFrame in the reference's column layout
         (splink/expectation_step.py:128-165)."""
         pairs = self._ensure_pairs()
+        ctx = self._tf_fold_ctx()
         with self._timed("score"):
-            p, prob_m, prob_u = self._score_batched(G)
+            p, prob_m, prob_u, z = self._score_batched(G, want_z=ctx is not None)
+        tf_p = None
+        if ctx is not None:
+            with self._timed("tf_fold"):
+                tf_p = self._tf_fold_pairs(z, pairs.idx_l, pairs.idx_r, ctx)
         with self._timed("assemble"):
-            df = self._assemble_df_e(G, pairs.idx_l, pairs.idx_r, p, prob_m, prob_u)
+            df = self._assemble_df_e(G, pairs.idx_l, pairs.idx_r, p, prob_m, prob_u, tf_p)
         return df
 
-    def _assemble_df_e(self, G, il, ir, p, prob_m, prob_u):
+    def _assemble_df_e(self, G, il, ir, p, prob_m, prob_u, tf_p=None):
+        """The frame's columns in the reference's order; ``tf_p``, the TF
+        fold's probabilities, goes directly after match_probability."""
         table = self._ensure_encoded()
         settings = self.settings
         uid = settings["unique_id_column_name"]
         cols: dict[str, np.ndarray] = {"match_probability": p}
+        if tf_p is not None:
+            cols["tf_match_probability"] = tf_p
 
         def add_lr(name, values):
             cols.setdefault(f"{name}_l", values[il])

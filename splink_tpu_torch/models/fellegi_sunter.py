@@ -140,7 +140,7 @@ def level_design(G, max_levels: int, dtype):
     G is fixed for a whole EM run, so the run builds this once and each
     update contracts it against the match weights in one matrix product."""
     levels = torch.arange(max_levels, dtype=G.dtype, device=G.device)
-    onehot = (G[:, :, None] == levels[None, None, :]).reshape(G.shape[0], -1)
+    onehot = (G[:, :, None] == levels[None, None, :]).reshape(G.shape[0], G.shape[1] * max_levels)
     return torch.cat([onehot, G >= 0], dim=1).to(dtype)
 
 

@@ -193,6 +193,119 @@ def test_roundtrip_within_port_is_bit_identical(tmp_path, dedupe_df):
     )
 
 
+def _lev2(s):
+    s["comparison_columns"][2] = {
+        "col_name": "city", "num_levels": 4,
+        "comparison": {"kind": "levenshtein", "thresholds": [0.2, 0.4]}}
+    return s
+
+
+def _perc(s):
+    s["comparison_columns"][3] = {
+        "col_name": "dob", "data_type": "numeric", "num_levels": 3,
+        "comparison": {"kind": "numeric_perc", "thresholds": [0.0001, 0.05]}}
+    return s
+
+
+def _inversion(s):
+    s["comparison_columns"].append({
+        "custom_name": "inv", "custom_columns_used": ["first_name", "surname"],
+        "num_levels": 4,
+        "comparison": {"kind": "name_inversion", "column": "first_name",
+                       "other_columns": ["surname"], "thresholds": [0.94, 0.88]}})
+    return s
+
+
+def _set_m_u(s):
+    rng = np.random.default_rng(3)
+    for col in s["comparison_columns"]:
+        m, u = rng.random(col["num_levels"]), rng.random(col["num_levels"])
+        col["m_probabilities"] = (m / m.sum()).tolist()
+        col["u_probabilities"] = (u / u.sum()).tolist()
+    return s
+
+
+# id: (settings changes, entry point, keyword arguments, link type)
+PATHS = {
+    "link_and_dedupe": (None, "get_scored_comparisons", {}, "link_and_dedupe"),
+    "retain_intermediate_calculation_columns": (
+        {"retain_intermediate_calculation_columns": True}, "get_scored_comparisons", {}, None),
+    "additional_columns_to_retain": (
+        {"additional_columns_to_retain": ["blk", "dup_of"]}, "get_scored_comparisons", {}, None),
+    "retain_matching_columns_false": (
+        {"retain_matching_columns": False}, "get_scored_comparisons", {}, None),
+    "manual_m_u": (_set_m_u, "manually_apply_fellegi_sunter_weights", {}, None),
+    "save_state_fn": ({"max_iterations": 4}, "get_scored_comparisons", {}, None),
+    "compute_ll": (None, "get_scored_comparisons", {"compute_ll": True}, None),
+    "two_phase_jw_off": ({"two_phase_jw": "off"}, "get_scored_comparisons", {}, None),
+    "max_iterations_0": ({"max_iterations": 0}, "get_scored_comparisons", {}, None),
+    "levenshtein_2_thresholds": (_lev2, "get_scored_comparisons", {}, None),
+    "numeric_perc": (_perc, "get_scored_comparisons", {}, None),
+    "name_inversion": (_inversion, "get_scored_comparisons", {}, None),
+    "non_ascii": (None, "get_scored_comparisons", {}, None),
+}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_path_parity_in_row_order(path):
+    """Paths that the other tests do not pin end to end: both packages on
+    the same frame give the same columns in the same order with the same
+    dtypes, the same pairs in the same row order, equal gamma columns, and
+    probabilities within 1e-5."""
+    change, entry, kwargs, link_type = PATHS[path]
+    s = settings(link_type or "dedupe_only")
+    s = change(s) if callable(change) else {**s, **(change or {})}
+    df = people(1500, seed=5)
+    if path == "non_ascii":  # 32-bit codepoint columns
+        df["first_name"] = df["first_name"].str.replace("a", "\u00e4").str.replace("e", "\u4e00")
+        df["city"] = df["city"].str.replace("o", "\u00f8")
+    frames = ({"df_l": df.iloc[0::2], "df_r": df.iloc[1::2]} if link_type else {"df": df})
+    lams = {}
+    out = {}
+    for pkg, kw in ((splink_tpu, {}), (splink_tpu_torch, {"device": "cpu"})):
+        seen = lams.setdefault(pkg.__name__, [])
+        save = (lambda params, _s, seen=seen: seen.append(params.params["λ"])) \
+            if path == "save_state_fn" else None
+        linker = pkg.Splink(copy.deepcopy(s), **frames, save_state_fn=save, **kw)
+        out[pkg.__name__] = (linker, getattr(linker, entry)(**kwargs))
+    (ref, want), (got, have) = out["splink_tpu"], out["splink_tpu_torch"]
+    assert len(have) > 10_000
+    assert list(have.columns) == list(want.columns)
+    assert list(have.dtypes) == list(want.dtypes)
+    for c in want.columns:
+        if want[c].dtype.kind == "f":
+            np.testing.assert_allclose(have[c], want[c], rtol=0, atol=1e-5, err_msg=c)
+        else:  # ids, gammas, retained values: equal, row for row
+            assert have[c].equals(want[c]), c
+    assert len(got.params.param_history) == len(ref.params.param_history)
+    if path == "save_state_fn":
+        assert len(lams["splink_tpu_torch"]) == len(lams["splink_tpu"]) > 1
+        np.testing.assert_allclose(lams["splink_tpu_torch"], lams["splink_tpu"], atol=1e-5)
+    if path == "compute_ll":
+        assert got.params.log_likelihood_exists
+        assert got.params.params["log_likelihood"] == pytest.approx(
+            ref.params.params["log_likelihood"], rel=1e-6)
+
+
+def test_no_candidate_pairs_parity():
+    """A rule that pairs no rows: EM runs on the empty gamma matrix and the
+    frame is empty with the reference's columns and dtypes (with a
+    term-frequency column, its fold column too)."""
+    s = settings(blocking_rules=["l.postcode = r.postcode AND l.first_name = r.surname"])
+    s["comparison_columns"][0]["term_frequency_adjustments"] = True
+    df = people(200, seed=1)
+    ref = splink_tpu.Splink(copy.deepcopy(s), df=df)
+    got = splink_tpu_torch.Splink(copy.deepcopy(s), df=df, device="cpu")
+    want, have = ref.get_scored_comparisons(), got.get_scored_comparisons()
+    assert len(have) == len(want) == 0
+    assert list(have.columns) == list(want.columns)
+    assert list(have.dtypes) == list(want.dtypes)
+    assert "tf_match_probability" in have.columns
+    assert got.params.params == ref.params.params
+    adj = got.make_term_frequency_adjustments(have)
+    assert list(adj.columns) == list(ref.make_term_frequency_adjustments(want).columns)
+
+
 # ----------------------------------------------------------------------
 # Isolation and the device rule
 # ----------------------------------------------------------------------
@@ -201,7 +314,8 @@ def test_roundtrip_within_port_is_bit_identical(tmp_path, dedupe_df):
 def test_import_leaves_jax_and_reference_unloaded():
     code = (
         "import sys, splink_tpu_torch, splink_tpu_torch.linker, "
-        "splink_tpu_torch.ops.strings_cuda\n"
+        "splink_tpu_torch.ops.strings_cuda, splink_tpu_torch.native, "
+        "splink_tpu_torch.term_frequencies, splink_tpu_torch.intuition\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'splink_tpu' or m.startswith('splink_tpu.')]\n"
         "assert not bad, bad\n"
@@ -272,7 +386,6 @@ def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, 
         {"device_blocking": "on"},
         {"approx_blocking": True},
         {"max_resident_pairs": 1024},
-        {"tf": True},
         {"kind": "qgram_jaccard"},
         {"kind": "dmetaphone"},
         {"case": "CASE WHEN foo(first_name_l) > 1 THEN 1 ELSE 0 END"},
@@ -281,9 +394,7 @@ def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, 
 )
 def test_unported_settings_raise(dedupe_df, override):
     s = settings()
-    if "tf" in override:
-        s["comparison_columns"][0]["term_frequency_adjustments"] = True
-    elif "kind" in override:
+    if "kind" in override:
         s["comparison_columns"][0]["comparison"] = {"kind": override["kind"]}
         s["comparison_columns"][0]["num_levels"] = 2
     elif "case" in override:
