@@ -24,7 +24,15 @@ array for array, and requires the main path's encode and blocking to have
 gone through it. It drives the term-frequency path at the main path's full
 size (two flagged columns: the u-probability fold in scoring, then the
 ex-post aggregation on the card), and holds it to the CPU: the linker on a
-subset, and the device aggregation on the main path's own token ids. Every
+subset, and the device aggregation on the main path's own token ids. It
+drives the kinds path at the main path's full size (the same rows and
+pairs; double metaphone, q-gram Jaccard, q-gram cosine, numeric and a
+hand-written CASE expression that only the general CASE compiler handles,
+whose jaro_winkler_sim and levenshtein(substr(...)) launch the dense
+kernels on every batch), holds those launches' inputs against the plain
+versions, times one batch of each q-gram form and of the CASE column, and
+holds the kinds path on a subset against the CPU (equal gamma matrices,
+probabilities within 1e-5, a bit-identical model JSON round trip). Every
 phase prints one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
@@ -99,6 +107,31 @@ WIDE_SETTINGS = {
          "comparison": {"kind": "levenshtein", "thresholds": [0.3]}},
         {"col_name": "dob", "data_type": "numeric", "num_levels": 2,
          "comparison": {"kind": "numeric_abs", "thresholds": [1.0]}},
+    ],
+}
+
+# Every comparison kind ported last, on the main path's rows and blocking:
+# city's CASE is outside compat_sql's shapes, so the general CASE compiler
+# evaluates it, launching the dense Jaro-Winkler kernel on every pair and
+# Levenshtein on 4-character substrings
+CITY_CASE = """CASE WHEN city_l IS NULL OR city_r IS NULL THEN -1
+WHEN city_l = city_r THEN 3
+WHEN jaro_winkler_sim(city_l, city_r) > 0.92 THEN 2
+WHEN levenshtein(substr(city_l,1,4), substr(city_r,1,4)) <= 1
+  OR jaccard_sim(Q3gramTokeniser(city_l), Q3gramTokeniser(city_r)) > 0.6 THEN 1
+ELSE 0 END"""
+KINDS_SETTINGS = {
+    "link_type": "dedupe_only",
+    "blocking_rules": ["l.blk = r.blk"],
+    "comparison_columns": [
+        {"col_name": "first_name", "num_levels": 3, "comparison": {"kind": "dmetaphone"}},
+        {"col_name": "surname", "num_levels": 3,
+         "comparison": {"kind": "qgram_jaccard", "q": 2, "thresholds": [0.7, 0.4]}},
+        {"col_name": "postcode", "num_levels": 2,
+         "comparison": {"kind": "qgram_cosine", "q": 3, "thresholds": [0.5]}},
+        {"col_name": "dob", "data_type": "numeric", "num_levels": 2,
+         "comparison": {"kind": "numeric_abs", "thresholds": [1.0]}},
+        {"col_name": "city", "num_levels": 4, "case_expression": CITY_CASE},
     ],
 }
 
@@ -602,6 +635,103 @@ def check_unit_interval(df, col, dtype):
 
 
 # ----------------------------------------------------------------------
+# The kinds path: q-gram, double metaphone and the general CASE compiler
+# ----------------------------------------------------------------------
+
+
+def kinds_host_seconds(data, qgram, df, table):
+    """Host seconds of the kinds path's per-row preprocessing at full size:
+    the ``__dm_first_name`` codes (once per distinct value) and their
+    encoding, and the q-gram and charset row aux the packed table carries."""
+    out = {}
+    t0 = time.perf_counter()
+    codes = data.double_metaphone_codes(df["first_name"])
+    out["dmetaphone_codes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data.encode_string_column(codes)
+    out["dmetaphone_encode_s"] = time.perf_counter() - t0
+    for name, fn, args in (
+        ("qgram_row_aux_surname_q2_s", qgram.qgram_row_aux, ("surname", 2)),
+        ("qgram_row_aux_postcode_q3_s", qgram.qgram_row_aux, ("postcode", 3)),
+        ("charset_row_aux_city_s", qgram.charset_row_aux, ("city",)),
+    ):
+        sc = table.strings[args[0]]
+        t0 = time.perf_counter()
+        fn(sc.bytes_, sc.lengths, sc.token_ids, *args[1:])
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def qgram_bound(torch, s1, s2, q, aux_bytes):
+    """The least time for one q-gram function on this batch: the bytes it
+    must move (both sides' characters and lengths, the aux it reads, a
+    float32 out) over the HBM rate, and its gram compares (one per window
+    pair and code word: the cross matrix; ``self_terms`` adds the two
+    per-side matrices of the self-contained forms) over the INT32 rate."""
+    B, L = s1.shape
+    nw = max(L - q + 1, 1)
+    words = -(-q // (63 // (8 if s1.dtype == torch.uint8 else 21)))
+    nbytes = 2 * B * L * s1.element_size() + 2 * 4 * B + aux_bytes + 4 * B
+
+    def bound(self_terms):
+        ops = B * nw * nw * words * (3 if self_terms else 1)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "int_ops": ops}
+
+    return bound
+
+
+def kinds_batch_timing(torch, gammas, qgram, case_compiler, linker):
+    """Each q-gram form and the CASE column on the kinds path's first pair
+    batch on the card: median device ms between events around the call
+    (the host's launches included: these are eager PyTorch ops) and median
+    host ms to a synchronize; the q-gram forms also on the CPU, where the
+    results must equal the card's."""
+    prog = gammas.GammaProgram(linker.settings, linker._table, device="cuda")
+    b = int(linker.settings["pair_batch_size"])
+    idx = [torch.from_numpy(np.asarray(a[:b], np.int64)).cuda()
+           for a in (linker._pairs.idx_l, linker._pairs.idx_r)]
+    ctx = gammas.PairContext(prog._layout, prog._packed.index_select(0, idx[0]),
+                             prog._packed.index_select(0, idx[1]))
+    b = idx[0].numel()
+    sur, post = ctx.col("surname"), ctx.col("postcode")
+    (m_l, n_l, _), (_, n_r, _) = ctx.qgram_aux("surname", 2)
+    (_, _, x11), (_, _, x22) = ctx.qgram_aux("postcode", 3)
+    city = linker.settings["comparison_columns"][4]
+    forms = {
+        "qgram_jaccard_masked/surname_q2": (
+            qgram.qgram_jaccard_masked,
+            (sur.chars_l, sur.chars_r, sur.len_l, sur.len_r, m_l, n_l, n_r, 2),
+            qgram_bound(torch, sur.chars_l, sur.chars_r, 2, 4 * m_l.numel() + 8 * b)(False)),
+        "qgram_cosine_masked/postcode_q3": (
+            qgram.qgram_cosine_masked,
+            (post.chars_l, post.chars_r, post.len_l, post.len_r, x11, x22, 3),
+            qgram_bound(torch, post.chars_l, post.chars_r, 3, 8 * b)(False)),
+        "qgram_cosine_distance/postcode_q3": (
+            qgram.qgram_cosine_distance,
+            (post.chars_l, post.chars_r, post.len_l, post.len_r, 3),
+            qgram_bound(torch, post.chars_l, post.chars_r, 3, 0)(True)),
+    }
+    out = []
+    for name, (fn, args, bound) in forms.items():
+        got = fn(*args)
+        want = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: the card's values differ from the CPU's")
+        out.append({"name": name, "pairs": b, "shape": list(args[0].shape),
+                    "event_ms": cuda_ms(torch, lambda: fn(*args), device_only=False),
+                    "host_ms": host_ms(torch, lambda: fn(*args), runs=TIMING_RUNS)[0],
+                    **bound})
+    run = case_compiler.compile_case_expression(city["comparison"]["expr"], city["num_levels"])
+    out.append({"name": "case_sql/city", "pairs": b,
+                "event_ms": cuda_ms(torch, lambda: run(ctx), device_only=False),
+                "host_ms": host_ms(torch, lambda: run(ctx), runs=TIMING_RUNS)[0]})
+    return out
+
+
+# ----------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------
 
@@ -615,9 +745,9 @@ def main() -> int:
     import pandas
 
     import splink_tpu_torch
-    from splink_tpu_torch import blocking, gammas, native
+    from splink_tpu_torch import blocking, case_compiler, data, gammas, native
     from splink_tpu_torch import term_frequencies as tf
-    from splink_tpu_torch.ops import strings, strings_cuda
+    from splink_tpu_torch.ops import qgram, strings, strings_cuda
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -954,6 +1084,88 @@ def main() -> int:
     if not np.array_equal(rdf["match_probability"].to_numpy(), gdf["match_probability"].to_numpy()):
         raise AssertionError("reloaded model scores differ from the trained linker's")
     emit("roundtrip", pairs=len(rdf), bit_identical=True)
+    del gpu, gdf, again, rdf
+
+    # -- the kinds path at full size: every comparison kind ported last ----
+    zero_counts(strings_cuda, native, tf)
+    strings_cuda.capture = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    klinker = splink_tpu_torch.Splink(json.loads(json.dumps(KINDS_SETTINGS)), df=df)
+    kdf = klinker.get_scored_comparisons()
+    kinds_wall = time.perf_counter() - t0
+    kinds_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kinds_launches = dict(strings_cuda.launches)
+    kinds_variants = dict(strings_cuda.variant_launches)
+    kinds_captured, strings_cuda.capture = strings_cuda.capture, None
+    check_path_counts("the kinds path", strings_cuda, native)
+    kinds = [c["comparison"]["kind"] for c in klinker.settings["comparison_columns"]]
+    if kinds != ["dmetaphone", "qgram_jaccard", "qgram_cosine", "numeric_abs", "case_sql"]:
+        raise AssertionError(f"kinds path comparison kinds {kinds}")
+    k_pairs = klinker._pairs.n_pairs
+    if k_pairs != n_pairs or len(kdf) != n_pairs:
+        raise AssertionError(f"the kinds path scored {k_pairs} pairs, the main path {n_pairs}")
+    # the CASE column launches each dense kernel once a batch, nothing else
+    n_batches = -(-n_pairs // int(klinker.settings["pair_batch_size"]))
+    want_variants = {"jaro_winkler/u8/w1": n_batches, "levenshtein/u8/w1": n_batches}
+    if kinds_variants != want_variants:
+        raise AssertionError(f"kinds path launches {kinds_variants}, expected {want_variants}")
+    kp = kdf["match_probability"].to_numpy()
+    if kp.dtype != np.float32 or not np.isfinite(kp).all() or (kp < 0).any() or (kp > 1).any():
+        raise AssertionError("kinds path match_probability not finite float32 in [0, 1]")
+    kinds_levels = {}
+    for col in KINDS_SETTINGS["comparison_columns"]:
+        g = kdf[f"gamma_{col['col_name']}"].to_numpy()
+        levels = np.unique(g).tolist()
+        if g.min() < -1 or g.max() >= col["num_levels"] or len(levels) < col["num_levels"]:
+            raise AssertionError(f"kinds path gamma_{col['col_name']} levels {levels}")
+        kinds_levels[col["col_name"]] = levels
+    k_planted = dup_of[kdf["unique_id_r"].to_numpy()] == kdf["unique_id_l"].to_numpy()
+    k_med = float(np.median(kp[k_planted]))
+    k_p99 = float(np.quantile(kp[~k_planted], 0.99))
+    if not k_med > k_p99:
+        raise AssertionError(f"kinds path planted median {k_med} vs other p99 {k_p99}")
+    emit("kinds", rows=N_ROWS, pairs=k_pairs, batches=n_batches, wall_s=kinds_wall,
+         stage_s=klinker.stage_seconds, launches=kinds_launches,
+         variant_launches=kinds_variants, native_calls=dict(native.calls),
+         peak_device_mem_gb=kinds_peak_gb, gamma_levels=kinds_levels,
+         em_updates=int(klinker._last_em_result.n_updates),
+         planted_median_p=k_med, other_p99=k_p99,
+         host_s=kinds_host_seconds(data, qgram, df, klinker._table),
+         batch_device_times=kinds_batch_timing(torch, gammas, qgram, case_compiler, klinker))
+    del kdf
+    # the dense launches' inputs of the CASE column's first batch: kernel
+    # against plain version; the kernel table's kinds rows
+    jw_dense, lev_substr = kinds_captured["jaro_winkler"], kinds_captured["levenshtein"]
+    rows += [
+        row("jaro_winkler/kinds_case_dense", "jaro_winkler", jw_dense, jw_w1,
+            kinds_launches["jaro_winkler"], path="kinds",
+            form="w1, dense: jaro_winkler_sim(city_l, city_r), the kinds path's first batch"),
+        row("levenshtein/kinds_case_substr", "levenshtein", lev_substr, ["levenshtein/u8/w1"],
+            kinds_launches["levenshtein"], path="kinds",
+            form="w1: levenshtein(substr(city_l,1,4), substr(city_r,1,4)), first batch"),
+    ]
+    del jw_dense, lev_substr, kinds_captured
+
+    # -- kinds parity: the subset on the card and on the CPU, and the model's
+    # -- JSON round trip on the card ------------------------------------------
+    kgpu, kgdf, kcpu, kdp, kparity_variants = cuda_vs_cpu(
+        splink_tpu_torch, strings_cuda, KINDS_SETTINGS, sub)
+    for k in KERNELS:
+        if not any(v > 0 for name, v in kparity_variants.items() if name.startswith(k + "/")):
+            raise AssertionError(f"the kinds parity run launched no {k} kernel")
+    kpath = os.path.join(out_dir, "kinds_model.json")
+    kgpu.save_model_as_json(kpath, overwrite=True)
+    kagain = splink_tpu_torch.load_from_json(kpath, df=sub)
+    krdf = kagain.manually_apply_fellegi_sunter_weights()
+    if not np.array_equal(krdf["match_probability"].to_numpy(),
+                          kgdf["match_probability"].to_numpy()):
+        raise AssertionError("kinds path: reloaded model scores differ from the trained linker's")
+    emit("kinds_parity", rows=len(sub), pairs=kgpu._pairs.n_pairs, gamma_equal=True,
+         max_abs_dp=kdp["match_probability"], variant_launches=kparity_variants,
+         em_updates={"cuda": kgpu._last_em_result.n_updates,
+                     "cpu": kcpu._last_em_result.n_updates},
+         roundtrip_bit_identical=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -10,7 +10,11 @@ kernels of the reference's TPU path (Jaro-Winkler, Levenshtein) are
 hand-written CUDA (csrc/jaro_winkler.cu, csrc/levenshtein.cu, sharing
 csrc/common.cuh), built with nvcc at first use; the host work of encoding
 and blocking runs splink_tpu's C++ library (native/src/host_kernels.cpp),
-built with g++ at first use. Term-frequency adjustment lives in
+built with g++ at first use. Every comparison kind of splink_tpu runs
+here: the q-gram and charset similarities (``ops.qgram``), double
+metaphone (``ops.phonetic``), hand-written SQL CASE expressions
+(``case_compiler``) and functions registered with
+``register_comparison``. Term-frequency adjustment lives in
 ``term_frequencies`` (and ``Splink.make_term_frequency_adjustments``), the
 intuition report in ``intuition``; like splink_tpu, the package exports
 neither module's names.
@@ -18,6 +22,7 @@ neither module's names.
 
 from ._device import resolve_device
 from .em import EMResult, run_em, score_pairs, score_pairs_with_intermediates
+from .gammas import register_comparison
 from .linker import Splink, load_from_json
 from .models.fellegi_sunter import FSParams, SufficientStats
 from .params import (
@@ -42,6 +47,7 @@ __all__ = [
     "load_from_json",
     "load_params_from_dict",
     "load_params_from_json",
+    "register_comparison",
     "resolve_device",
     "run_em",
     "score_pairs",

@@ -188,11 +188,11 @@ def parse_case_expression(expr: str, num_levels: int) -> dict:
         "  * dmetaphone equality (2/3 level)  -> kind 'dmetaphone'\n"
         "  * name-inversion jw + ifnull OR    -> kind 'name_inversion'\n"
         "Hand-written CASE expressions outside these shapes are compiled by "
-        "the general CASE compiler (splink_tpu/case_compiler.py) when used "
-        "via settings; alternatively provide a native spec, e.g. "
+        "the general CASE compiler (splink_tpu_torch/case_compiler.py) when "
+        "used via settings; alternatively provide a native spec, e.g. "
         '{"comparison": {"kind": "jaro_winkler", "thresholds": [0.94, 0.88]}}, '
-        "or implement the logic with splink_tpu.register_comparison() and "
-        '{"comparison": {"kind": "custom", "name": ...}}.'
+        "or implement the logic with splink_tpu_torch.register_comparison() and "
+        '{"comparison": {"kind": "custom", "fn": ...}}.'
     )
 
 

@@ -374,16 +374,30 @@ def encode_table(df, settings: dict, source_table: np.ndarray | None = None) -> 
             raise ValueError(f"Input data is missing retained column {name!r}")
         table.raw[name] = df[name].to_numpy()
 
-    # Derived phonetic columns: double-metaphone codes computed once per
-    # record on the host, then compared on device as ordinary token ids.
-    phonetic = _phonetic_columns_needed(settings)
-    if phonetic:
-        raise NotImplementedError(
-            f"double-metaphone columns {sorted(phonetic)} need the phonetic "
-            "encoder (ROADMAP.md, 'qgram and dmetaphone kinds'), which "
-            "splink_tpu_torch does not port yet"
+    # Derived phonetic columns: double-metaphone codes computed on the host,
+    # then compared on device as ordinary token ids.
+    for name in _phonetic_columns_needed(settings):
+        if name not in df.columns:
+            raise ValueError(f"Input data is missing phonetic column {name!r}")
+        table.strings[phonetic_column_name(name)] = encode_string_column(
+            double_metaphone_codes(df[name])
         )
     return table
+
+
+def double_metaphone_codes(values) -> list:
+    """The primary double-metaphone code of each row's ``str(v)``, None for
+    a null row: splink_tpu's per-row codes, encoded once per distinct value
+    and mapped back to the rows."""
+    import pandas as pd
+
+    from .ops.phonetic import double_metaphone_primary
+
+    src = _to_object_array(values)
+    strs = pd.Series([None if v is None else str(v) for v in src], dtype=object)
+    codes, uniques = pd.factorize(strs, use_na_sentinel=True)
+    enc = np.array([double_metaphone_primary(u) for u in uniques] + [None], dtype=object)
+    return enc[codes].tolist()  # code -1 (null) takes the trailing None
 
 
 def concat_tables(df_l, df_r, settings: dict) -> EncodedTable:

@@ -569,12 +569,8 @@ class _Eval:
         """DoubleMetaphone per UNIQUE value (the encoding is the expensive
         one; names repeat heavily), same codes as the precomputed __dm_
         columns (splink_tpu/ops/phonetic.py — bit-exact vs the reference
-        jar's commons-codec bytecode). Not ported yet: raises."""
-        raise NotImplementedError(
-            f"{name}() blocking keys need the double-metaphone encoder "
-            "(ROADMAP.md, 'qgram and dmetaphone kinds'), which "
-            "splink_tpu_torch does not port yet"
-        )
+        jar's commons-codec bytecode)."""
+        from .ops.phonetic import double_metaphone
 
         import pandas as pd
 

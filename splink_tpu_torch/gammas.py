@@ -7,10 +7,14 @@ side) and moved to the device once; each pair batch then costs two row
 gathers, and fields are unpacked on the device with dtype views and
 shifts.
 
-Ported comparison kinds: exact, jaro_winkler (two-phase and exact),
-levenshtein, numeric_abs, numeric_perc and name_inversion. qgram_*,
-dmetaphone, case_sql and custom raise NotImplementedError, as do the
-pattern-id pipeline, GammaStream and PatternStream (ROADMAP.md).
+Every comparison kind of splink_tpu is here: exact, jaro_winkler
+(two-phase and exact), levenshtein, numeric_abs, numeric_perc,
+name_inversion, dmetaphone (token equality on the host-computed ``__dm_``
+column), qgram_jaccard and qgram_cosine (ops/qgram.py, with each row's
+q-gram aux lanes packed beside its characters), case_sql (a hand-written
+SQL CASE expression compiled by case_compiler.py) and custom (a function
+registered with ``register_comparison``). The pattern-id pipeline,
+GammaStream and PatternStream are not ported (ROADMAP.md).
 
 Two-phase Jaro-Winkler: the reference reserves a fixed survivor capacity
 per batch and redoes an overflowing batch with the exact body, because XLA
@@ -30,9 +34,10 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .data import EncodedTable
+from .data import EncodedTable, phonetic_column_name
 from .ops import jw_bound
 from .ops import numeric as numeric_ops
+from .ops import qgram as qgram_ops
 from .ops import strings as string_ops
 from .ops.gamma import (
     GAMMA_DTYPE,
@@ -44,10 +49,19 @@ from .ops.gamma import (
 
 DEFAULT_PAIR_BATCH = 1 << 20
 
-PORTED_KINDS = (
-    "exact", "jaro_winkler", "levenshtein", "numeric_abs", "numeric_perc",
-    "name_inversion",
-)
+# Registry for custom comparisons: name -> callable(ctx, col_settings) -> gamma
+_CUSTOM_COMPARISONS: dict[str, callable] = {}
+
+
+def register_comparison(name: str, fn) -> None:
+    """Register a custom comparison.
+
+    ``fn(ctx, col_settings) -> (b,) integer gamma tensor`` where ctx is a
+    :class:`PairContext` over the batch's pairs on the program's device;
+    settings select it with ``{"kind": "custom", "fn": name}``. The port's
+    counterpart of splink_tpu.register_comparison: the function receives
+    this package's PairContext and returns a torch tensor."""
+    _CUSTOM_COMPARISONS[name] = fn
 
 
 @dataclass
@@ -96,8 +110,42 @@ class _JwBoundField:
         self.pref_lane = pref_lane
 
 
+class _QgramField:
+    """Lanes of one column's q-gram aux (qgram_ops.qgram_row_aux): the
+    distinct-gram first-occurrence mask and distinct count (jaccard), the
+    squared count norm (cosine); None for a component no kind reads."""
+
+    __slots__ = ("mask", "count_lane", "sq_lane")
+
+    def __init__(self, mask, count_lane, sq_lane):
+        self.mask = mask  # lane slice, ceil(n_windows / 32) lanes
+        self.count_lane = count_lane
+        self.sq_lane = sq_lane
+
+
+class _CharsetField:
+    """Lanes of one column's charset aux (qgram_ops.charset_row_aux) for
+    the CASE compiler's jaccard_sim: first-occurrence-and-non-space mask,
+    non-space distinct count, has-space flag."""
+
+    __slots__ = ("mask", "count_lane", "space_lane")
+
+    def __init__(self, mask, count_lane, space_lane):
+        self.mask = mask
+        self.count_lane = count_lane
+        self.space_lane = space_lane
+
+
 def _jw_key(name: str) -> str:
     return f"\x00jwbound:{name}"
+
+
+def _qgram_key(name: str, q: int) -> str:
+    return f"\x00qgram:{name}:{q}"
+
+
+def _charset_key(name: str) -> str:
+    return f"\x00charset:{name}"
 
 
 def _comparison_input_column(col_settings: dict) -> str | None:
@@ -110,20 +158,45 @@ def _comparison_input_column(col_settings: dict) -> str | None:
     return name
 
 
-def check_kinds_ported(settings: dict) -> None:
+def qgram_specs_for(settings: dict) -> tuple[tuple[str, int, bool, bool], ...]:
+    """(column, q, want_jaccard_aux, want_cosine_aux) for each q-gram aux
+    field to pack, as splink_tpu's: one per native qgram_jaccard /
+    qgram_cosine column and q, packing only the components its kinds read;
+    CASE cosine_distance calls whose arguments are all plain column
+    references add the sumsq lanes."""
+    flags: dict[tuple[str, int], list[bool]] = {}
     for c in settings["comparison_columns"]:
-        kind = (c.get("comparison") or {}).get("kind")
-        if kind not in PORTED_KINDS:
-            item = {
-                "qgram_jaccard": "qgram and dmetaphone kinds",
-                "qgram_cosine": "qgram and dmetaphone kinds",
-                "dmetaphone": "qgram and dmetaphone kinds",
-                "case_sql": "case_compiler",
-            }.get(kind, "custom comparison kernels")
-            raise NotImplementedError(
-                f"comparison kind {kind!r} is not ported to splink_tpu_torch "
-                f"yet (ROADMAP.md, {item!r}); ported kinds: {PORTED_KINDS}"
-            )
+        spec = c.get("comparison") or {}
+        kind = spec.get("kind")
+        if kind in ("qgram_jaccard", "qgram_cosine"):
+            name = _comparison_input_column(c)
+            if name:
+                f = flags.setdefault((name, int(spec.get("q", 2))), [False, False])
+                f[0] |= kind == "qgram_jaccard"
+                f[1] |= kind == "qgram_cosine"
+        elif kind == "case_sql":
+            from .case_compiler import precompute_aux_requirements
+
+            _, cos = precompute_aux_requirements(spec["expr"])
+            for name, q in cos:
+                f = flags.setdefault((name, q), [False, False])
+                f[1] = True
+    return tuple((n, q, f[0], f[1]) for (n, q), f in flags.items())
+
+
+def charset_specs_for(settings: dict) -> tuple[str, ...]:
+    """Columns whose charset aux rides in the packed table: plain column
+    references in CASE jaccard_sim calls."""
+    cols: dict[str, None] = {}
+    for c in settings["comparison_columns"]:
+        spec = c.get("comparison") or {}
+        if spec.get("kind") == "case_sql":
+            from .case_compiler import precompute_aux_requirements
+
+            charset, _ = precompute_aux_requirements(spec["expr"])
+            for name in sorted(charset):
+                cols.setdefault(name)
+    return tuple(cols)
 
 
 def jw_specs_for(settings: dict) -> tuple[str, ...]:
@@ -139,25 +212,34 @@ def jw_specs_for(settings: dict) -> tuple[str, ...]:
     return tuple(cols)
 
 
-def comparison_columns_used(settings: dict) -> set[str]:
-    """Encoded-column names the gamma program reads."""
+def comparison_columns_used(settings: dict) -> set[str] | None:
+    """Encoded-column names the gamma program reads, or None for all of
+    them (a custom comparison may read any column)."""
     used: set[str] = set()
     for col in settings["comparison_columns"]:
         spec = col.get("comparison") or {}
+        kind = spec.get("kind")
+        if kind == "custom":
+            return None
         name = _comparison_input_column(col)
         if name:
             used.add(name)
+            if kind == "dmetaphone":
+                used.add(phonetic_column_name(name))
         used.update(spec.get("other_columns", []))
+        used.update(spec.get("columns_used", []))
+        used.update(phonetic_column_name(c) for c in spec.get("phonetic_columns", []))
     return used
 
 
 def pack_table(table: EncodedTable, float64: bool = False, include=None,
-               jw_specs=()):
+               qgram_specs=(), charset_specs=(), jw_specs=()):
     """Pack encoded columns into one (n_rows, n_lanes) uint32 matrix, lane
     for lane the layout of splink_tpu's ``pack_table``: per string column
     its chars (width/4 lanes ASCII, width lanes wide), a length lane and a
-    token-id lane; the JW-bound aux lanes; numeric values (one f32 or two
-    f64 lanes) with their null bits packed 32 per lane at the end.
+    token-id lane; the q-gram, charset and JW-bound aux lanes; numeric
+    values (one f32 or two f64 lanes) with their null bits packed 32 per
+    lane at the end.
 
     Returns (packed uint32 ndarray, {name: field layout})."""
     n = table.n_rows
@@ -188,6 +270,26 @@ def pack_table(table: EncodedTable, float64: bool = False, include=None,
         len_lane = add(sc.lengths.astype(np.int32).view(np.uint32)).start
         tok_lane = add(sc.token_ids.astype(np.int32).view(np.uint32)).start
         layout[name] = _StringField(kind, sc.width, chars, len_lane, tok_lane)
+
+    for qname, q, want_jac, want_cos in qgram_specs:
+        sc = table.strings.get(qname)
+        if sc is None or (include is not None and qname not in include):
+            continue
+        mask, count, sumsq = qgram_ops.qgram_row_aux(sc.bytes_, sc.lengths, sc.token_ids, q)
+        layout[_qgram_key(qname, q)] = _QgramField(
+            add(mask) if want_jac else None,
+            add(count.view(np.uint32)).start if want_jac else None,
+            add(sumsq.view(np.uint32)).start if want_cos else None,
+        )
+
+    for cname in charset_specs:
+        sc = table.strings.get(cname)
+        if sc is None or (include is not None and cname not in include):
+            continue
+        mask, count, space = qgram_ops.charset_row_aux(sc.bytes_, sc.lengths, sc.token_ids)
+        layout[_charset_key(cname)] = _CharsetField(
+            add(mask), add(count.view(np.uint32)).start, add(space.view(np.uint32)).start
+        )
 
     for jname in jw_specs:
         sc = table.strings.get(jname)
@@ -254,6 +356,37 @@ class PairContext:
             for rows in (self._rows_l, self._rows_r)
         )
 
+    def qgram_aux(self, name: str, q: int):
+        """Per-side q-gram aux (mask (b, lanes) int32, distinct count (b,)
+        int32, squared norm (b,) float32), None for a component not packed;
+        None when the table carries no aux for this column and q."""
+        f = self._layout.get(_qgram_key(name, q))
+        if f is None:
+            return None
+
+        def side(rows):
+            return (
+                None if f.mask is None else rows[:, f.mask].contiguous(),
+                None if f.count_lane is None else rows[:, f.count_lane].contiguous(),
+                None if f.sq_lane is None
+                else rows[:, f.sq_lane].contiguous().view(torch.float32),
+            )
+
+        return side(self._rows_l), side(self._rows_r)
+
+    def charset_aux(self, name: str):
+        """Per-side charset aux (mask (b, lanes), non-space distinct count,
+        has-space flag; int32), or None when the table carries none for
+        this column."""
+        f = self._layout.get(_charset_key(name))
+        if f is None:
+            return None
+        return tuple(
+            (rows[:, f.mask].contiguous(), rows[:, f.count_lane].contiguous(),
+             rows[:, f.space_lane].contiguous())
+            for rows in (self._rows_l, self._rows_r)
+        )
+
     def col(self, name: str) -> PairColumn:
         f = self._layout[name]
         out = PairColumn()
@@ -269,14 +402,22 @@ class PairContext:
         return out
 
 
+def _pad_chars(chars, width: int):
+    """Zero-pad a (b, w) char tensor to (b, width), contiguous; codepoints
+    other than uint8 become int32 (the packed table's codepoint type)."""
+    out = chars if chars.dtype in (torch.uint8, torch.int32) else chars.to(torch.int32)
+    if out.shape[1] < width:
+        out = torch.nn.functional.pad(out, (0, width - out.shape[1]))
+    return out.contiguous()
+
+
 def _align_chars(a, b):
     """Zero-pad two (b, w) char tensors to one width and one dtype (columns
     may be encoded at different widths, ASCII or wide)."""
     width = max(a.shape[1], b.shape[1])
     if a.dtype != b.dtype:
         a, b = a.to(torch.int32), b.to(torch.int32)
-    pad = lambda x: torch.nn.functional.pad(x, (0, width - x.shape[1]))  # noqa: E731
-    return pad(a).contiguous(), pad(b).contiguous()
+    return _pad_chars(a, width), _pad_chars(b, width)
 
 
 def _survivor_levels_masked(pc: PairColumn, surv, thresholds):
@@ -334,15 +475,48 @@ def _spec_gamma(col_settings: dict, ctx: PairContext, two_phase: bool):
     spec = col_settings["comparison"]
     kind = spec["kind"]
     levels = col_settings["num_levels"]
-    pc = ctx.col(_comparison_input_column(col_settings))
+    name = _comparison_input_column(col_settings)
+
+    if kind == "custom":
+        fn = _CUSTOM_COMPARISONS.get(spec.get("fn", ""))
+        if fn is None:
+            raise ValueError(
+                f"comparison kind 'custom' requires a registered fn; got "
+                f"{spec.get('fn')!r}. Use splink_tpu_torch.register_comparison()."
+            )
+        return fn(ctx, col_settings).to(GAMMA_DTYPE)
+
+    if kind == "case_sql":
+        from .case_compiler import compile_case_expression
+
+        return compile_case_expression(spec["expr"], levels)(ctx)
+
+    pc = ctx.col(name)
     thresholds = tuple(spec.get("thresholds", ()))
 
     if kind == "exact":
         eq = pc.tok_l == pc.tok_r if pc.tok_l is not None else pc.num_l == pc.num_r
         return apply_null(eq.to(GAMMA_DTYPE), pc.null)
 
+    if kind == "dmetaphone":
+        # token equality on the host-computed double-metaphone column:
+        # 2 levels phonetic equality; 3 levels exact match above it
+        if levels not in (2, 3):
+            raise ValueError(
+                f"dmetaphone comparison supports num_levels 2 or 3, got {levels}"
+            )
+        dm = ctx.col(phonetic_column_name(name))
+        phon_eq = dm.tok_l == dm.tok_r
+        if levels >= 3:
+            i8 = lambda v: torch.tensor(v, dtype=GAMMA_DTYPE, device=phon_eq.device)  # noqa: E731
+            gamma = torch.where(pc.tok_l == pc.tok_r, i8(2),
+                                torch.where(phon_eq, i8(1), i8(0)))
+        else:
+            gamma = phon_eq.to(GAMMA_DTYPE)
+        return apply_null(gamma, pc.null)
+
     if kind == "jaro_winkler":
-        aux = ctx.jw_aux(_comparison_input_column(col_settings)) if thresholds else None
+        aux = ctx.jw_aux(name) if thresholds else None
         if aux is not None and two_phase:
             return _jw_two_phase(pc, aux, thresholds)
         sim = string_ops.jaro_winkler(
@@ -364,6 +538,33 @@ def _spec_gamma(col_settings: dict, ctx: PairContext, two_phase: bool):
     if kind == "numeric_perc":
         diff = numeric_ops.relative_difference(pc.num_l, pc.num_r)
         return bucket_difference(diff, thresholds, pc.null)
+
+    if kind == "qgram_jaccard":
+        q = int(spec.get("q", 2))
+        aux = ctx.qgram_aux(name, q)
+        if aux is not None and aux[0][0] is not None:
+            (m_l, n_l, _), (_, n_r, _) = aux
+            sim = qgram_ops.qgram_jaccard_masked(
+                pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, m_l, n_l, n_r, q
+            )
+        else:
+            sim = qgram_ops.qgram_jaccard(pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, q)
+        return bucket_similarity(sim, thresholds, pc.null)
+
+    if kind == "qgram_cosine":
+        q = int(spec.get("q", 2))
+        aux = ctx.qgram_aux(name, q)
+        if aux is not None and aux[0][2] is not None:
+            (_, _, x11), (_, _, x22) = aux
+            dist = qgram_ops.qgram_cosine_masked(
+                pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, x11, x22, q
+            )
+        else:
+            dist = qgram_ops.qgram_cosine_distance(
+                pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, q
+            )
+        sim = 1.0 - dist
+        return bucket_similarity(sim, thresholds, pc.null)
 
     if kind == "name_inversion":
         # 4-level cross-column comparison handling inverted name fields
@@ -399,7 +600,6 @@ class GammaProgram:
 
     def __init__(self, settings: dict, table: EncodedTable,
                  float_dtype=torch.float32, device=None):
-        check_kinds_ported(settings)
         self.settings = settings
         self.device = resolve_device(device)
         self.n_cols = len(settings["comparison_columns"])
@@ -410,6 +610,8 @@ class GammaProgram:
             table,
             float64=float_dtype == torch.float64,
             include=comparison_columns_used(settings),
+            qgram_specs=qgram_specs_for(settings),
+            charset_specs=charset_specs_for(settings),
             jw_specs=jw_specs_for(settings) if self.two_phase else (),
         )
         self._packed = torch.from_numpy(packed.view(np.int32)).to(self.device)

@@ -42,7 +42,7 @@ from .em import (
     score_pairs_with_intermediates_logits,
     score_pairs_with_logits,
 )
-from .gammas import GammaProgram, check_kinds_ported
+from .gammas import GammaProgram
 from .params import Params, fsparams_from_numpy, load_params_from_json
 from .settings import comparison_column_name, complete_settings_dict
 from .term_frequencies import (
@@ -83,7 +83,6 @@ def _check_resident_settings(settings: dict) -> None:
     if settings.get("device_pair_generation") == "on":
         raise _not_ported("device_pair_generation: 'on'",
                           "overlap / pattern / streamed / spill regimes")
-    check_kinds_ported(settings)
 
 
 class Splink:

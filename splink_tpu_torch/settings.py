@@ -157,8 +157,9 @@ def _complete_comparison(col_settings: dict) -> None:
             raise ValueError(f"comparison spec {spec!r} is missing 'kind'")
     elif "case_expression" in col_settings:
         # Reference-splink compatibility: fast-path the CASE shapes the
-        # reference's generators emit onto native kernels; anything else
-        # needs the general CASE compiler, not ported yet (raises).
+        # reference's generators emit onto native kernels; anything else is
+        # handed to the general CASE compiler (case_compiler.py), which
+        # evaluates the expression faithfully inside the gamma program.
         try:
             col_settings["comparison"] = parse_case_expression(
                 col_settings["case_expression"], levels
@@ -178,13 +179,32 @@ def _complete_comparison(col_settings: dict) -> None:
 
 
 def _general_case_spec(col_settings: dict, levels: int, fast_err) -> dict:
-    """A hand-written CASE expression the shape-translator doesn't recognise
-    needs the general CASE compiler, which this package does not have yet."""
-    raise NotImplementedError(
-        "case_expression needs the general CASE compiler (ROADMAP.md, "
-        "'case_compiler'), which splink_tpu_torch does not port yet; the "
-        f"shape translator said: {fast_err}"
-    )
+    """Build a 'case_sql' comparison spec for a hand-written CASE expression
+    the shape-translator doesn't recognise, validating it compiles."""
+    from .case_compiler import analyse_case_expression, compile_case_expression
+
+    expr = col_settings["case_expression"]
+    try:
+        info = analyse_case_expression(expr)
+        compile_case_expression(expr, levels)  # compile-time validation
+    except SqlTranslationError as general_err:
+        raise SqlTranslationError(
+            f"case_expression could not be handled.\n"
+            f"Shape translator: {fast_err}\n"
+            f"General CASE compiler: {general_err}"
+        ) from general_err
+    # A CASE doing arithmetic on its own column implies the column is
+    # numeric even if data_type was left at the 'string' default.
+    primary = col_settings.get("col_name")
+    if primary and info["columns"].get(primary) == "numeric":
+        col_settings["data_type"] = "numeric"
+    return {
+        "kind": "case_sql",
+        "expr": expr,
+        "columns_used": sorted(info["columns"]),
+        "column_types": dict(info["columns"]),
+        "phonetic_columns": sorted(info["phonetic"]),
+    }
 
 
 def _complete_probabilities(col_settings: dict, key: str) -> None:

@@ -386,23 +386,11 @@ def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, 
         {"device_blocking": "on"},
         {"approx_blocking": True},
         {"max_resident_pairs": 1024},
-        {"kind": "qgram_jaccard"},
-        {"kind": "dmetaphone"},
-        {"case": "CASE WHEN foo(first_name_l) > 1 THEN 1 ELSE 0 END"},
     ],
     ids=lambda o: next(iter(o)),
 )
 def test_unported_settings_raise(dedupe_df, override):
     s = settings()
-    if "kind" in override:
-        s["comparison_columns"][0]["comparison"] = {"kind": override["kind"]}
-        s["comparison_columns"][0]["num_levels"] = 2
-    elif "case" in override:
-        col = s["comparison_columns"][0]
-        del col["comparison"]
-        col["num_levels"] = 2
-        col["case_expression"] = override["case"]
-    else:
-        s.update(override)
+    s.update(override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         splink_tpu_torch.Splink(s, df=dedupe_df, device="cpu").get_scored_comparisons()
