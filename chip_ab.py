@@ -13,7 +13,11 @@ other in this process, in the order given, on the same inputs:
   * the whole two-phase Jaro-Winkler step of one column (bound, survivors,
     kernel, levels) on the first pair batch of chip_smoke.py's main path
     (1,000,000 seeded rows): median host ms from the call to a
-    synchronize, and its levels, which must be equal in every tree.
+    synchronize, and its levels, which must be equal in every tree;
+  * the main path's training (``Splink(...).estimate_parameters()`` on the
+    same rows: encode, blocking, gammas, EM, no output frame): wall
+    seconds and ``stage_seconds``, and the fitted lambda, which must be
+    equal in every tree.
 
 Give each tree twice, in turns (A, B, B, A), to read
 the spread. Prints the card's name and power limit as nvidia-smi gives
@@ -27,6 +31,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -87,8 +92,21 @@ def main(trees: list[str]) -> int:
             first.update(jw=jw, lvl=lvl)
         elif not (torch.equal(jw, first["jw"]) and torch.equal(lvl, first["lvl"])):
             raise AssertionError(f"{tree}: Jaro-Winkler output or levels differ from {trees[0]}")
+        mod = sys.modules["splink_tpu_torch"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained = mod.Splink(json.loads(json.dumps(cs.SETTINGS)), df=df)
+        trained.estimate_parameters()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        lam = trained.params.params["λ"]
+        if "lam" not in first:
+            first["lam"] = lam
+        elif lam != first["lam"]:
+            raise AssertionError(f"{tree}: fitted lambda {lam} differs from {first['lam']}")
         print(json.dumps({
             "tree": tree,
+            "train": {"wall_s": train_s, "stage_s": trained.stage_seconds, "lambda": lam},
             "jw_dense_2M_w24": {
                 "ms": cs.cuda_ms(torch, lambda: strings_cuda.jaro_winkler_cuda(*args)),
                 "call_ms": cs.cuda_ms(torch, lambda: strings_cuda.jaro_winkler_cuda(*args),
@@ -97,7 +115,7 @@ def main(trees: list[str]) -> int:
                                "host_ms_to_synchronize": step_ms},
             "kernel_launches": dict(strings_cuda.variant_launches),
         }), flush=True)
-        del pc, aux, args, jw
+        del pc, aux, args, jw, trained
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0),
                       "trees": trees}), flush=True)
     return 0

@@ -32,8 +32,19 @@ whose jaro_winkler_sim and levenshtein(substr(...)) launch the dense
 kernels on every batch), holds those launches' inputs against the plain
 versions, times one batch of each q-gram form and of the CASE column, and
 holds the kinds path on a subset against the CPU (equal gamma matrices,
-probabilities within 1e-5, a bit-identical model JSON round trip). Every
-phase prints one JSON line; any failed check raises. The last lines are the
+probabilities within 1e-5, a bit-identical model JSON round trip). It
+drives a job past the default max_resident_pairs at full size (the
+``large`` phase: 4,000,000 rows, ~320M candidate pairs): training
+through device pair generation (one masked Jaro-Winkler launch per name
+column and one Levenshtein launch per batch), then through host blocking
+feeding the overlap PatternStream (equal counts and parameters), then
+the trained model's first 8 scored chunks, each checked against the
+resident gamma program; and it holds every regime to the resident one
+on the subset (``regimes_parity``: the pattern regime virtual and
+materialised, the streamed regime of a custom comparison, checkpointed
+EM and its resume after an injected fault bit for bit, the OOM fallback,
+and the pattern regime on the card against the CPU). Every phase prints
+one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
 
@@ -167,11 +178,12 @@ def _typo(rng, s):
     return s[:i] + s[i + 1:] if len(s) > 1 else s + c
 
 
-def make_people(n: int, seed: int):
+def make_people(n: int, seed: int, groups: int | None = None):
     """Seeded people table: names from pools of random 4-10 letter strings
     (5,000 first names, 20,000 surnames), ~10% planted duplicates carrying a
     one-character typo in a name or the city and sharing their source's
-    block, ~2% nulls per column; ``blk`` uniform over n // 32 groups."""
+    block, ~2% nulls per column; ``blk`` uniform over ``groups`` groups
+    (default n // 32)."""
     import pandas as pd
 
     rng = np.random.default_rng(seed)
@@ -186,7 +198,7 @@ def make_people(n: int, seed: int):
     }
     cols = {k: v[rng.integers(0, len(v), n_base)] for k, v in pools.items()}
     cols["dob"] = rng.integers(0, 30_000, n_base).astype(np.float64)
-    cols["blk"] = rng.integers(0, n // 32, n_base)
+    cols["blk"] = rng.integers(0, groups or n // 32, n_base)
     src = rng.integers(0, n_base, n_dup)
     for k in cols:
         cols[k] = np.concatenate([cols[k], cols[k][src]])
@@ -736,6 +748,348 @@ def kinds_batch_timing(torch, gammas, qgram, case_compiler, linker):
 # ----------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------
+# Jobs past max_resident_pairs: the large phase and the regimes' parity
+# ----------------------------------------------------------------------
+
+LARGE_ROWS = 4_000_000
+LARGE_GROUPS = 25_000  # ~160 rows a block: ~320M candidate pairs
+LARGE_STREAM_CHUNKS = 8
+MAX_RESIDENT_PAIRS = 268_435_456  # the settings schema's default
+VIRTUAL_RTOL = 1e-12  # virtual against materialised pairs, the reference's bound
+PROFILE_BATCHES = 4
+
+
+def params_state(linker) -> str:
+    """The fitted parameters and their whole history as JSON text: equal
+    strings mean bit-identical trajectories."""
+    return json.dumps({"current": linker.params.params,
+                       "history": linker.params.param_history}, sort_keys=True)
+
+
+def max_rel_diff(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))) if a.size else 0.0
+
+
+def virtual_batches(linker) -> int:
+    """Batches of the virtual pass over the linker's plan (each rule in
+    batches of min(pair_batch_size, next power of two >= its total))."""
+    batch = int(linker.settings["pair_batch_size"])
+    return sum(-(-rp.total // min(batch, 1 << max(int(rp.total - 1).bit_length(), 6)))
+               for rp in linker._virtual.rules if rp.total)
+
+
+def check_large_variants(strings_cuda, batches: int, what: str):
+    """Every batch: one masked Jaro-Winkler launch per name column (two) and
+    one Levenshtein launch (city), nothing else."""
+    want = {"jaro_winkler/u8/w1/masked": 2 * batches, "levenshtein/u8/w1": batches}
+    got = dict(strings_cuda.variant_launches)
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+    return got
+
+
+def profile_virtual_batches(torch, pairgen, linker, n_batches=PROFILE_BATCHES):
+    """``n_batches`` batches of the virtual pattern pass (decode, mask,
+    gammas, ids, histogram), first timed alone (host clock to a
+    synchronize, and CUDA events around the same loop), then under
+    torch.profiler for the device's busy time per batch (the sum of its
+    kernels' self times), the ops with the most device time and the
+    kernel launches per batch. The idle share is 1 - busy / the untraced
+    wall: the profiler's own host cost would inflate the traced wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    program = linker._ensure_pattern_program()
+    fn = pairgen.make_virtual_pattern_fn(program, linker._virtual, 0)
+    batch = int(linker.settings["pair_batch_size"])
+    hist = torch.zeros(program.n_patterns + 1, dtype=torch.int64, device="cuda")
+    qs = [torch.arange(b * batch, (b + 1) * batch, device="cuda") for b in range(n_batches + 1)]
+
+    def run(batches):
+        for q in batches:
+            hist.add_(torch.bincount(fn(q), minlength=program.n_patterns + 1))
+
+    run(qs[-1:])  # warm-up
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run(qs[:n_batches])
+    stop.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_batches
+    event_ms = start.elapsed_time(stop) / n_batches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(qs[:n_batches])
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy_ms = sum(dev_us(e) for e in events) / 1e3 / n_batches
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    return {"batches": n_batches, "pairs_per_batch": batch, "host_wall_ms_per_batch": wall,
+            "event_ms_per_batch": event_ms, "device_busy_ms_per_batch": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall) if wall else None,
+            "top_device_ops_ms_per_batch": {e.key[:80]: dev_us(e) / 1e3 / n_batches
+                                            for e in top},
+            "launches_per_batch": sum(e.count for e in events
+                                      if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                   "cudaLaunchKernelExC")) / n_batches}
+
+
+def large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen, reset,
+                df, dup_of, main_dtypes, device="cuda"):
+    """The regimes past max_resident_pairs at full size: a job whose pairs
+    exceed the default max_resident_pairs trains through device pair
+    generation (1); the same job through host blocking feeding the overlap
+    PatternStream gives the same counts and parameters (2); the trained
+    model streams its first scored chunks, each checked against the
+    resident gamma program (3)."""
+    on_card = device == "cuda"
+    out = {"rows": len(df), "groups": int(df["blk"].nunique())}
+    settings = json.loads(json.dumps(SETTINGS))
+
+    # 1: device pair generation, the histogram-only pattern pass and EM
+    reset()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    virt = splink_tpu_torch.Splink(json.loads(json.dumps(settings)), df=df, device=device)
+    virt.estimate_parameters()
+    wall = time.perf_counter() - t0
+    if not virt.device_pair_generation_active:
+        raise AssertionError("the large job did not take device pair generation")
+    counts = virt._pattern_counts
+    pairs = int(counts.sum())
+    if not (pairs > MAX_RESIDENT_PAIRS and virt._pair_bound > MAX_RESIDENT_PAIRS):
+        raise AssertionError(f"{pairs} pairs, bound {virt._pair_bound}: not past "
+                             f"max_resident_pairs {MAX_RESIDENT_PAIRS}")
+    if virt._pairs is not None or virt._P_virtual is not None:
+        raise AssertionError("the virtual training run kept per-pair state on the host")
+    batches = virtual_batches(virt)
+    variants = check_large_variants(strings_cuda, batches, "the virtual pass") if on_card else {}
+    stage = dict(virt.stage_seconds)
+    out["virtual"] = {
+        "wall_s": wall, "stage_s": stage, "candidate_positions": virt._virtual.n_candidates,
+        "pairs": pairs, "pair_bound": virt._pair_bound, "batches": batches,
+        "distinct_patterns": int((counts > 0).sum()), "n_patterns": int(counts.size),
+        "em_updates": int(virt._last_em_result.n_updates),
+        "em_converged": bool(virt._last_em_result.converged),
+        "pattern_pass_pairs_per_s": pairs / stage["gammas_patterns"],
+        "pass_with_program_pairs_per_s": pairs / (stage["gammas_patterns"]
+                                                  + stage["gamma_program"]),
+        "variant_launches": variants, "launches": dict(strings_cuda.launches),
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+        "lambda": float(virt.params.params["λ"]),
+    }
+
+    # 2: host blocking feeding the overlap PatternStream: the same counts,
+    # the same parameters
+    reset()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mat = splink_tpu_torch.Splink({**json.loads(json.dumps(settings)),
+                                   "device_pair_generation": "off"}, df=df, device=device)
+    mat.estimate_parameters()
+    mat_wall = time.perf_counter() - t0
+    if mat.device_pair_generation_active or mat._P is None:
+        raise AssertionError("the materialised run did not take the overlap PatternStream")
+    if mat._pairs.n_pairs != pairs or not np.array_equal(mat._pattern_counts, counts):
+        raise AssertionError("pattern counts differ between virtual and materialised pairs")
+    rel = {k: max_rel_diff(a, b) for k, a, b in zip(
+        ("lambda", "m", "u"), mat.params.to_arrays()[:3], virt.params.to_arrays()[:3])}
+    if max(rel.values()) > VIRTUAL_RTOL:
+        raise AssertionError(f"virtual vs materialised parameters differ: {rel}")
+    mat_variants = {}
+    if on_card:
+        mat_variants = check_large_variants(
+            strings_cuda, -(-pairs // int(virt.settings["pair_batch_size"])),
+            "the materialised pass")
+        check_path_counts("the large materialised path", strings_cuda, native)
+    out["materialised"] = {
+        "wall_s": mat_wall, "stage_s": dict(mat.stage_seconds), "pairs": mat._pairs.n_pairs,
+        "counts_equal": True, "params_max_rel_diff": rel, "variant_launches": mat_variants,
+        "native_calls": dict(native.calls),
+        "host_pair_index_gb": 2 * mat._pairs.idx_l.nbytes / 1e9,
+        "pattern_ids_gb": mat._P.nbytes / 1e9,
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+    }
+    del mat
+
+    # 3: the trained model's first scored chunks from the virtual stream
+    reset()
+    program = gammas.GammaProgram(virt.settings, virt._table, device=device)
+    stream = virt.stream_scored_comparisons_after_em()
+    chunk_ms, planted, probs = [], [], []
+    for _ in range(LARGE_STREAM_CHUNKS):
+        t0 = time.perf_counter()
+        frame = next(stream)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        if [(c, str(t)) for c, t in frame.dtypes.items()] != main_dtypes:
+            raise AssertionError("a streamed chunk's columns or dtypes differ from the "
+                                 "resident path's frame")
+        p = check_unit_interval(frame, "match_probability", np.float32)
+        # unique_id is the row number in make_people's frames
+        il, ir = (torch.from_numpy(frame[c].to_numpy().astype(np.int64)).to(device)
+                  for c in ("unique_id_l", "unique_id_r"))
+        G = program.gamma_batch(il, ir).cpu().numpy()
+        for c, col in enumerate(SETTINGS["comparison_columns"]):
+            if not np.array_equal(frame[f"gamma_{col['col_name']}"].to_numpy(), G[:, c]):
+                raise AssertionError(f"streamed gamma_{col['col_name']} differs from the "
+                                     "resident gamma program on the chunk's pairs")
+        planted.append(dup_of[frame["unique_id_r"].to_numpy()] == frame["unique_id_l"].to_numpy())
+        probs.append(p)
+    stream.close()
+    planted, probs = np.concatenate(planted), np.concatenate(probs)
+    med, p99 = float(np.median(probs[planted])), float(np.quantile(probs[~planted], 0.99))
+    if not med > p99:
+        raise AssertionError(f"streamed chunks: planted median {med} vs other p99 {p99}")
+    out["stream"] = {"chunks": LARGE_STREAM_CHUNKS, "pairs": int(len(probs)),
+                     "chunk_host_ms": chunk_ms, "planted_pairs": int(planted.sum()),
+                     "planted_median_p": med, "other_p99": p99,
+                     "gammas_equal_resident_program": True,
+                     "variant_launches": dict(strings_cuda.variant_launches)}
+    if on_card:
+        try:
+            out["profile"] = profile_virtual_batches(torch, pairgen, virt)
+        except Exception as e:  # noqa: BLE001 - a measurement, not a check
+            out["profile"] = {"error": f"{type(e).__name__}: {e}"[:300]}
+    out["large_path_launches"] = out["virtual"]["launches"]
+    return out
+
+
+def postcode_exact(ctx, col_settings):
+    """A custom comparison (postcode token equality): settings with one
+    cannot use the pattern-id pipeline."""
+    import torch
+
+    from splink_tpu_torch.ops.gamma import apply_null
+
+    pc = ctx.col("postcode")
+    return apply_null((pc.tok_l == pc.tok_r).to(torch.int8), pc.null)
+
+
+def regimes_parity(splink_tpu_torch, resilience, sub, out_dir, device="cuda"):
+    """Every regime on ``device`` at the subset's size, against the resident
+    regime: the pattern regime (virtual and materialised), the streamed-G
+    regime, checkpointed EM and its resume after an injected fault, the OOM
+    fallback; and the pattern regime on the card against the CPU."""
+    import pandas as pd
+    import warnings
+
+    from splink_tpu_torch.utils.logging_utils import DegradationWarning
+
+    splink_tpu_torch.register_comparison("chip_smoke_postcode_exact", postcode_exact)
+    base = json.loads(json.dumps(SETTINGS))
+    out = {"rows": len(sub)}
+    key = ["unique_id_l", "unique_id_r"]
+
+    def run(settings, entry="get_scored_comparisons", dev=device, **kw):
+        lk = splink_tpu_torch.Splink(json.loads(json.dumps(settings)), df=sub, device=dev)
+        res = getattr(lk, entry)(**kw)
+        if entry == "get_scored_comparisons":
+            res = res.sort_values(key).reset_index(drop=True)
+        return lk, res
+
+    # the pattern regime against the resident one (float64), and virtual
+    # against materialised pairs (float32)
+    f64 = {**base, "float64": True, "retain_intermediate_calculation_columns": True}
+    res_lk, res64 = run(f64)
+    pat = {}
+    for dpg in ("on", "off"):
+        lk64, fr64 = run({**f64, "max_resident_pairs": 1024, "device_pair_generation": dpg})
+        if not lk64._use_pattern_pipeline() or lk64.device_pair_generation_active != (dpg == "on"):
+            raise AssertionError(f"device_pair_generation {dpg}: not the expected regime")
+        pd.testing.assert_frame_equal(res64, fr64, check_exact=False, rtol=1e-5, atol=1e-7)
+        pat[dpg] = run({**base, "max_resident_pairs": 1024, "device_pair_generation": dpg})
+    (von, fon), (_, foff) = pat["on"], pat["off"]
+    if not fon[key + [c for c in fon if c.startswith("gamma_")]].equals(
+            foff[key + [c for c in foff if c.startswith("gamma_")]]):
+        raise AssertionError("virtual and materialised pairs or gammas differ")
+    dp = max_rel_diff(fon["match_probability"], foff["match_probability"])
+    if dp > VIRTUAL_RTOL:
+        raise AssertionError(f"virtual vs materialised probabilities differ by {dp} relative")
+    out["pattern"] = {"pairs": len(fon), "vs_resident_f64": "rtol 1e-5 / atol 1e-7",
+                      "virtual_vs_materialised_max_rel_dp": dp}
+
+    # the streamed-G regime: a custom comparison rules patterns out
+    custom = json.loads(json.dumps(base))
+    custom["comparison_columns"][4] = {
+        "custom_name": "postcode_exact", "custom_columns_used": ["postcode"],
+        "num_levels": 2, "comparison": {"kind": "custom", "fn": "chip_smoke_postcode_exact"}}
+    r_lk, r_fr = run(custom)
+    s_lk, s_fr = run({**custom, "max_resident_pairs": 1024, "pair_batch_size": 65_536})
+    if s_lk._use_pattern_pipeline() or "em_streamed" not in s_lk.stage_seconds:
+        raise AssertionError("the custom comparison's run did not take the streamed regime")
+    dlam = abs(r_lk.params.params["λ"] - s_lk.params.params["λ"])
+    if dlam > 1e-5:
+        raise AssertionError(f"streamed vs resident lambda differs by {dlam}")
+    np.testing.assert_allclose(s_fr["match_probability"], r_fr["match_probability"],
+                               rtol=1e-3, atol=1e-5)
+    out["streamed_g"] = {"pairs": len(s_fr), "lambda_abs_diff": dlam,
+                         "max_abs_dp": float(np.abs(s_fr["match_probability"].to_numpy()
+                                                    - r_fr["match_probability"].to_numpy()).max())}
+
+    # checkpointed EM: invisible, and a resume after an injected fault at a
+    # boundary equals the uninterrupted run bit for bit
+    ck = {**base, "max_iterations": 8, "em_convergence": 1e-12, "checkpoint_interval": 2}
+    ckpt_root = os.path.join(out_dir, f"checkpoints_{device}")
+    import shutil
+
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    plain, _ = run(ck, "estimate_parameters")
+    with_ck, _ = run(ck, "estimate_parameters", checkpoint_dir=os.path.join(ckpt_root, "a"))
+    if params_state(with_ck) != params_state(plain):
+        raise AssertionError("checkpointed EM differs from EM without checkpoints")
+    resilience.faults.reset_plans()
+    stopped_at = None
+    try:
+        run({**ck, "fault_plan": "segment@iter=4:kind=transient"}, "estimate_parameters",
+            checkpoint_dir=os.path.join(ckpt_root, "b"))
+    except resilience.InjectedFault as e:
+        stopped_at = e.coords
+    if stopped_at != {"iter": 4}:
+        raise AssertionError(f"the injected segment fault did not stop the run: {stopped_at}")
+    on_disk = resilience.load_checkpoint(os.path.join(ckpt_root, "b")).iteration
+    resumed, _ = run(ck, "estimate_parameters", checkpoint_dir=os.path.join(ckpt_root, "b"),
+                     resume=True)
+    if params_state(resumed) != params_state(plain):
+        raise AssertionError("EM resumed after the injected fault differs from the "
+                             "uninterrupted run")
+    out["checkpoint"] = {"bit_identical": True, "em_updates": len(plain.params.param_history),
+                         "stopped_at": stopped_at, "checkpoint_iteration": on_disk,
+                         "resumed_bit_identical": True}
+
+    # the OOM fallback: resident -> streamed on the same device, logged
+    resilience.faults.reset_plans()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        oom, _ = run({**base, "fault_plan": "resident_em@kind=oom"}, "estimate_parameters")
+    degraded = [str(w.message) for w in caught if issubclass(w.category, DegradationWarning)]
+    if not degraded or "em_streamed" not in oom.stage_seconds:
+        raise AssertionError(f"the injected OOM did not take the streamed regime: {degraded}")
+    res32, _ = run(base, "estimate_parameters")
+    dlam = abs(oom.params.params["λ"] - res32.params.params["λ"])
+    if dlam > 1e-5:
+        raise AssertionError(f"OOM fallback lambda differs from resident by {dlam}")
+    out["oom_fallback"] = {"warning": degraded[0], "lambda_abs_diff": dlam}
+
+    # the pattern regime on the card against the CPU
+    cpu_lk, cpu_fr = run({**base, "max_resident_pairs": 1024}, dev="cpu")
+    if not np.array_equal(von._pattern_counts, cpu_lk._pattern_counts):
+        raise AssertionError("pattern counts differ between the card and the CPU")
+    dcpu = float(np.abs(fon["match_probability"].to_numpy()
+                        - cpu_fr["match_probability"].to_numpy()).max())
+    if dcpu > 1e-5:
+        raise AssertionError(f"pattern regime probabilities card vs CPU differ by {dcpu}")
+    out["card_vs_cpu"] = {"counts_equal": True, "max_abs_dp": dcpu}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -745,7 +1099,7 @@ def main() -> int:
     import pandas
 
     import splink_tpu_torch
-    from splink_tpu_torch import blocking, case_compiler, data, gammas, native
+    from splink_tpu_torch import blocking, case_compiler, data, gammas, native, pairgen, resilience
     from splink_tpu_torch import term_frequencies as tf
     from splink_tpu_torch.ops import qgram, strings, strings_cuda
 
@@ -756,7 +1110,9 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          pandas=pandas.__version__,
-         allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         host_mem_available_gb=os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 1e9,
+         host_cpus=os.cpu_count())
 
     t0 = time.perf_counter()
     libs = strings_cuda.build()
@@ -866,6 +1222,7 @@ def main() -> int:
          planted_pairs=int(planted.sum()), planted_median_p=med_dup,
          other_p99=p99_other, lambda_=float(linker.params.params["λ"]),
          peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    main_dtypes = [(c, str(t)) for c, t in df_e.dtypes.items()]
     del df_e
 
     # -- the native host library against its plain versions at the main
@@ -1166,6 +1523,23 @@ def main() -> int:
          em_updates={"cuda": kgpu._last_em_result.n_updates,
                      "cpu": kcpu._last_em_result.n_updates},
          roundtrip_bit_identical=True)
+
+    # -- jobs past max_resident_pairs at full size: device pair generation,
+    # -- the overlap PatternStream, the score stream ----------------------------
+    t0 = time.perf_counter()
+    big, big_dup = make_people(LARGE_ROWS, SEED, groups=LARGE_GROUPS)
+    big_gen_s = time.perf_counter() - t0
+    large = large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen,
+                        lambda: zero_counts(strings_cuda, native, tf), big, big_dup,
+                        main_dtypes)
+    emit("large", data_gen_s=big_gen_s, **large)
+    del big, big_dup
+    for r in rows:
+        if r["name"] in KERNELS:
+            r["large_path_launches"] = large["large_path_launches"][r["name"]]
+
+    # -- every regime on the card at the subset's size -----------------------
+    emit("regimes_parity", **regimes_parity(splink_tpu_torch, resilience, sub, out_dir))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

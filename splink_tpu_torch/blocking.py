@@ -10,7 +10,7 @@ beyond two int arrays, and device gathers do the rest.
 This is the host join of splink_tpu/blocking.py. Its device-native
 sort-join tier (splink_tpu/blocking_device.py) is not ported yet:
 ``device_blocking: "auto"`` takes the host join here and ``"on"`` raises
-(ROADMAP.md, 'device blocking'), as does ``approx_blocking``.
+(ROADMAP.md, Queue 1 item 8), as does ``approx_blocking`` (item 10).
 
 Pair-set semantics are preserved exactly:
   * equality-conjunction rules (``l.a = r.a AND l.b = r.b``) become hash
@@ -60,46 +60,231 @@ _CARTESIAN_CHUNK = 1 << 22
 
 @dataclass
 class PairIndex:
-    """Candidate pairs as row indices into one EncodedTable, int32 whenever
-    the table allows (n_rows < 2^31 — i.e. always, in practice)."""
+    """Candidate pairs as row indices into one EncodedTable.
+
+    Indices are int32 whenever the table allows (n_rows < 2^31 — i.e.
+    always, in practice): at billions of candidate pairs the narrow dtype
+    halves both the resident footprint and the spill size. The int64 path
+    survives behind the ``_idx_dtype`` size check only."""
 
     idx_l: np.ndarray  # (n_pairs,) int32 (int64 iff n_rows >= 2^31)
     idx_r: np.ndarray  # (n_pairs,) int32 (int64 iff n_rows >= 2^31)
+    # When blocking streamed the pairs straight to disk (spill_dir set),
+    # idx_l/idx_r are memmaps living in this directory; the linker adopts it
+    # for lifetime management.
+    spill_tmp: str | None = None
 
     @property
     def n_pairs(self) -> int:
         return len(self.idx_l)
 
+    def release(self) -> None:
+        """Deterministically release the spill backing: close the memmaps
+        FIRST, then reclaim the transient spill directory. The weakref
+        finalizer does the same reclaim at GC time on POSIX, but Windows
+        refuses to unlink a file with a live mapping — callers that need
+        portable, immediate reclamation use this instead of relying on
+        collection order. Idempotent."""
+        import shutil
+
+        for name in ("idx_l", "idx_r"):
+            arr = getattr(self, name)
+            mm = getattr(arr, "_mmap", None)
+            if mm is not None:
+                setattr(self, name, np.zeros(0, arr.dtype))
+                try:
+                    mm.close()
+                except (BufferError, OSError):
+                    pass  # an external view still holds the map
+        fin = self.__dict__.pop("_finalizer", None)
+        if fin is not None:
+            fin.detach()
+        if self.spill_tmp is not None:
+            shutil.rmtree(self.spill_tmp, ignore_errors=True)
+            self.spill_tmp = None
+
+
+def _proc_start_time(pid: int) -> int | None:
+    """The process's kernel start time (clock ticks since boot) from
+    /proc/<pid>/stat, or None where /proc is unavailable. Distinguishes a
+    live owner from an unrelated process that recycled its pid."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as fh:
+            data = fh.read().decode("ascii", "replace")
+        # field 22 (starttime); the comm field can contain spaces/parens so
+        # split after the LAST ')'
+        return int(data.rsplit(")", 1)[1].split()[19])
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def _owner_token(pid: int) -> str:
+    start = _proc_start_time(pid)
+    return f"{pid} {start}" if start is not None else str(pid)
+
+
+def _sweep_stale_spill_dirs(spill_dir: str) -> None:
+    """Reclaim splink_pairs_* dirs whose owning process is gone.
+
+    The weakref finalizer on a spilled PairIndex never runs on
+    SIGKILL/OOM-kill — the most likely death for a job big enough to spill —
+    so each spill dir records its owner pid (plus the pid's kernel start
+    time, so a recycled pid belonging to an unrelated live process doesn't
+    pin a multi-GB orphan forever) and the next spilling run sweeps dirs
+    whose owner is gone, BEFORE it starts writing its own pair set. Dirs
+    without a pid file (mid-creation, or foreign) are left alone.
+    """
+    import os
+    import shutil
+
+    try:
+        entries = os.listdir(spill_dir)
+    except OSError:
+        return
+    for name in entries:
+        if not name.startswith("splink_pairs_"):
+            continue
+        path = os.path.join(spill_dir, name)
+        pid_file = os.path.join(path, "owner.pid")
+        try:
+            with open(pid_file) as fh:
+                fields = fh.read().split()
+            pid = int(fields[0])
+            recorded_start = int(fields[1]) if len(fields) > 1 else None
+        except (OSError, IndexError, ValueError):
+            continue
+        if pid == os.getpid():
+            continue
+        try:
+            os.kill(pid, 0)  # signal 0: existence check only
+        except ProcessLookupError:
+            logger.info("reclaiming stale spill dir %s (pid %d dead)", path, pid)
+            shutil.rmtree(path, ignore_errors=True)
+            continue
+        except OSError:
+            pass  # e.g. EPERM: pid exists under another user — but
+            # /proc/<pid>/stat is world-readable, so the start-time
+            # comparison below still detects a recycled pid
+        # pid is alive — but is it the same process that wrote the dir?
+        current_start = _proc_start_time(pid)
+        if (
+            recorded_start is not None
+            and current_start is not None
+            and current_start != recorded_start
+        ):
+            logger.info(
+                "reclaiming stale spill dir %s (pid %d recycled: start %d "
+                "!= recorded %d)", path, pid, current_start, recorded_start,
+            )
+            shutil.rmtree(path, ignore_errors=True)
+
 
 class _PairSink:
-    """Accumulates per-rule pair chunks in RAM and concatenates them at the
-    end. (splink_tpu's sink can also stream chunks to ``spill_dir``; the
-    spill regimes are not ported yet, so ``block_using_rules`` refuses
-    that setting.)"""
+    """Accumulates per-rule pair chunks; either in RAM (concatenate at the
+    end) or streamed to spill files as they are produced, so the pair set
+    never exists twice in memory (chunks + concatenated copy).
 
-    def __init__(self, idx_dtype):
+    A context manager: an exception anywhere inside the ``with`` body
+    aborts the sink — handles closed, the partial spill directory
+    reclaimed — so segments written before a mid-emission failure are
+    never left for the stale-dir sweep to (not) find: the owning process
+    is still alive, which is exactly the case the pid-based sweep
+    correctly refuses to touch."""
+
+    def __enter__(self) -> "_PairSink":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.abort()
+
+    def __init__(self, spill_dir: str | None, idx_dtype):
         self.idx_dtype = idx_dtype
-        self._chunks_l: list[np.ndarray] = []
-        self._chunks_r: list[np.ndarray] = []
+        self.total = 0
+        self.spill_tmp = None
+        if spill_dir:
+            import os
+            import tempfile
+
+            os.makedirs(spill_dir, exist_ok=True)
+            # reclaim orphans before writing tens of GB next to them
+            _sweep_stale_spill_dirs(spill_dir)
+            self.spill_tmp = tempfile.mkdtemp(
+                prefix="splink_pairs_", dir=spill_dir
+            )
+            with open(os.path.join(self.spill_tmp, "owner.pid"), "w") as fh:
+                fh.write(_owner_token(os.getpid()))
+            self._files = [
+                open(os.path.join(self.spill_tmp, f"{name}.bin"), "wb")
+                for name in ("idx_l", "idx_r")
+            ]
+        else:
+            self._chunks_l: list[np.ndarray] = []
+            self._chunks_r: list[np.ndarray] = []
 
     def append(self, i: np.ndarray, j: np.ndarray) -> None:
-        self._chunks_l.append(i.astype(self.idx_dtype, copy=False))
-        self._chunks_r.append(j.astype(self.idx_dtype, copy=False))
+        i = i.astype(self.idx_dtype, copy=False)
+        j = j.astype(self.idx_dtype, copy=False)
+        self.total += len(i)
+        if self.spill_tmp is not None:
+            i.tofile(self._files[0])
+            j.tofile(self._files[1])
+        else:
+            self._chunks_l.append(i)
+            self._chunks_r.append(j)
+
+    def abort(self) -> None:
+        """Close handles and reclaim the partial spill dir after a failure
+        mid-blocking — the owning process is still alive, so the stale-dir
+        sweep would (correctly) not touch it."""
+        if self.spill_tmp is None:
+            return
+        import shutil
+
+        for fh in self._files:
+            try:
+                fh.close()
+            except OSError:
+                pass
+        shutil.rmtree(self.spill_tmp, ignore_errors=True)
+        self.spill_tmp = None
 
     def finish(self) -> PairIndex:
-        if not self._chunks_l:  # chunked emission may sink nothing
-            return PairIndex(np.zeros(0, self.idx_dtype), np.zeros(0, self.idx_dtype))
-        if len(self._chunks_l) == 1:
-            # np.concatenate on a one-element list still copies
-            return PairIndex(self._chunks_l[0], self._chunks_r[0])
-        return PairIndex(np.concatenate(self._chunks_l), np.concatenate(self._chunks_r))
+        if self.spill_tmp is None:
+            if not self._chunks_l:  # chunked emission may sink nothing
+                return PairIndex(
+                    np.zeros(0, self.idx_dtype), np.zeros(0, self.idx_dtype)
+                )
+            if len(self._chunks_l) == 1:
+                # np.concatenate on a one-element list still copies
+                return PairIndex(self._chunks_l[0], self._chunks_r[0])
+            return PairIndex(
+                np.concatenate(self._chunks_l), np.concatenate(self._chunks_r)
+            )
+        import os
+        import shutil
+        import weakref
 
-
-def _spill_not_ported():
-    raise NotImplementedError(
-        "spill_dir needs the spill regimes (ROADMAP.md, 'overlap / pattern "
-        "/ streamed / spill regimes'), which splink_tpu_torch does not port yet"
-    )
+        for fh in self._files:
+            fh.close()
+        arrs = []
+        for name in ("idx_l", "idx_r"):
+            path = os.path.join(self.spill_tmp, f"{name}.bin")
+            if self.total:
+                arrs.append(
+                    np.memmap(
+                        path, dtype=self.idx_dtype, mode="r", shape=(self.total,)
+                    )
+                )
+            else:
+                arrs.append(np.empty(0, self.idx_dtype))
+        out = PairIndex(arrs[0], arrs[1], spill_tmp=self.spill_tmp)
+        # reclaim the files when the pair index goes away (unlink while the
+        # memmaps are open is safe on POSIX; space frees on close). The
+        # handle is kept so PairIndex.release() can close the maps first
+        # and detach — the Windows-safe deterministic path.
+        out._finalizer = weakref.finalize(out, shutil.rmtree, self.spill_tmp, True)
+        return out
 
 
 # ----------------------------------------------------------------------
@@ -596,7 +781,7 @@ def estimate_pair_upper_bound(
 def _approx_not_ported():
     raise NotImplementedError(
         "approx_blocking needs the approximate LSH tier (ROADMAP.md, "
-        "'approx blocking'), which splink_tpu_torch does not port yet"
+        "Queue 1 item 10), which splink_tpu_torch does not port yet"
     )
 
 
@@ -684,6 +869,7 @@ def block_using_rules(
     settings: dict,
     table: EncodedTable,
     n_left: int | None = None,
+    pair_consumer=None,
 ) -> PairIndex:
     """Generate candidate pairs for the given settings.
 
@@ -693,11 +879,20 @@ def block_using_rules(
             is the vertical concatenation of both inputs (rows [0, n_left)
             from the left input).
         n_left: number of left-input rows (link types only).
+        pair_consumer: optional callable(i, j) invoked with every pair chunk
+            in emission order, right after it is sunk. The linker passes a
+            device-scoring stream here, so that the device computes rule
+            k's gammas or pattern ids while the host joins rule k+1,
+            instead of a second sweep over the finished (possibly
+            spilled) pair index.
+
+    With ``spill_dir`` set, the chunks stream to memmapped files in a fresh
+    ``splink_pairs_*`` directory under it instead of being kept in RAM.
     """
     link_type = settings["link_type"]
     rules = settings.get("blocking_rules") or []
     if not rules:
-        return cartesian_block(settings, table, n_left)
+        return cartesian_block(settings, table, n_left, pair_consumer)
 
     # Pair indices are stored int32 when the table allows (they always do —
     # int32 row indices cover 2^31 rows); at billions of candidate pairs this
@@ -705,23 +900,22 @@ def block_using_rules(
     idx_dtype = _idx_dtype(table.n_rows)
     all_rows = np.arange(table.n_rows, dtype=idx_dtype)
 
-    if settings.get("spill_dir"):
-        _spill_not_ported()
     if settings.get("approx_blocking"):
         _approx_not_ported()
     if settings.get("device_blocking", "auto") == "on":
         raise NotImplementedError(
             'device_blocking: "on" needs the device sort-join tier '
-            "(ROADMAP.md, 'device blocking'), which splink_tpu_torch does "
+            "(ROADMAP.md, Queue 1 item 8), which splink_tpu_torch does "
             'not port yet; "auto" and "off" take the host join'
         )
-    return _block_rules_into(
-        _PairSink(idx_dtype), rules, settings, table, link_type, all_rows, n_left
-    )
+    with _PairSink(settings.get("spill_dir"), idx_dtype) as sink:
+        return _block_rules_into(
+            sink, rules, settings, table, link_type, all_rows, n_left, pair_consumer
+        )
 
 
 def _block_rules_into(
-    sink, rules, settings, table, link_type, all_rows, n_left
+    sink, rules, settings, table, link_type, all_rows, n_left, pair_consumer=None
 ) -> PairIndex:
     # Sequential-rule dedup by PREDICATE, the literal semantics of the
     # reference's ``AND NOT ifnull(previous_rule, false)``
@@ -810,6 +1004,11 @@ def _block_rules_into(
                 i, j = i[keep], j[keep]
             n_new += len(i)
             sink.append(i, j)
+            if pair_consumer is not None:
+                pair_consumer(
+                    i.astype(sink.idx_dtype, copy=False),
+                    j.astype(sink.idx_dtype, copy=False),
+                )
             del i, j
 
         prior_rules.append((codes_l, codes_r, residual))
@@ -915,15 +1114,26 @@ def cartesian_block(
     settings: dict,
     table: EncodedTable,
     n_left: int | None = None,
+    pair_consumer=None,
 ) -> PairIndex:
     """All pairwise comparisons (the fallback when no rules are given,
-    splink/blocking.py:183-184, 219-318)."""
-    if settings.get("spill_dir"):
-        _spill_not_ported()
+    splink/blocking.py:183-184, 219-318). With spill_dir the pair set is
+    generated and streamed to disk in bounded-memory chunks."""
     link_type = settings["link_type"]
+    spill_dir = settings.get("spill_dir")
     idx_dtype = _idx_dtype(table.n_rows)
-    i, j = _all_pairs(table, link_type, n_left)
-    i, j = _orient_pairs(table, link_type, i, j)
-    i = i.astype(idx_dtype, copy=False)
-    j = j.astype(idx_dtype, copy=False)
-    return PairIndex(i, j)
+    if not spill_dir:
+        i, j = _all_pairs(table, link_type, n_left)
+        i, j = _orient_pairs(table, link_type, i, j)
+        i = i.astype(idx_dtype, copy=False)
+        j = j.astype(idx_dtype, copy=False)
+        if pair_consumer is not None:
+            pair_consumer(i, j)
+        return PairIndex(i, j)
+    with _PairSink(spill_dir, idx_dtype) as sink:
+        for i, j in _iter_all_pairs_chunks(table, link_type, n_left, _CARTESIAN_CHUNK):
+            i, j = _orient_pairs(table, link_type, i, j)
+            sink.append(i, j)
+            if pair_consumer is not None:
+                pair_consumer(i.astype(idx_dtype, copy=False), j.astype(idx_dtype, copy=False))
+        return sink.finish()

@@ -13,8 +13,17 @@ name_inversion, dmetaphone (token equality on the host-computed ``__dm_``
 column), qgram_jaccard and qgram_cosine (ops/qgram.py, with each row's
 q-gram aux lanes packed beside its characters), case_sql (a hand-written
 SQL CASE expression compiled by case_compiler.py) and custom (a function
-registered with ``register_comparison``). The pattern-id pipeline,
-GammaStream and PatternStream are not ported (ROADMAP.md).
+registered with ``register_comparison``).
+
+The pattern-id pipeline: a gamma vector mixed-radix-encodes into one
+pattern id (strides over levels_c + 1), the complete sufficient statistic
+of a pair. One device pass yields the per-pair ids (uint16 where every id
+and the mask sentinel fit) and their histogram, which is EM's input; scoring
+afterwards is a host LUT gather. ``GammaStream`` and ``PatternStream`` run
+the gamma and pattern passes on pair chunks as blocking emits them. The
+histogram counts in int64 on the device (``torch.bincount``), so the
+reference's int32 accumulator and its periodic flush have no counterpart;
+the counts are the same integers.
 
 Two-phase Jaro-Winkler: the reference reserves a fixed survivor capacity
 per batch and redoes an overflowing batch with the exact body, because XLA
@@ -24,10 +33,13 @@ survivor mask and writes 0 elsewhere), so nothing waits on the host and no
 rows are gathered or scattered; on the CPU the survivors are compacted
 with ``torch.nonzero`` and the plain version runs on those rows. The gamma
 matrix is bit-identical to both of the reference's bodies either way.
+With no survivor capacity there is nothing to overflow, so the reference's
+overflow flag and its exact-twin redo of a batch have no counterpart here.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,6 +60,10 @@ from .ops.gamma import (
 )
 
 DEFAULT_PAIR_BATCH = 1 << 20
+
+# Largest dense gamma-pattern space the pattern-id pipeline handles; beyond
+# this the linker streams sufficient statistics instead.
+MAX_PATTERNS = 1 << 22
 
 # Registry for custom comparisons: name -> callable(ctx, col_settings) -> gamma
 _CUSTOM_COMPARISONS: dict[str, callable] = {}
@@ -593,6 +609,109 @@ def _spec_gamma(col_settings: dict, ctx: PairContext, two_phase: bool):
     raise ValueError(f"Unknown comparison kind {kind!r}")
 
 
+def pattern_histogram(ids: torch.Tensor, length: int) -> torch.Tensor:
+    """(length,) int64 counts of the int ids, each in [0, length): the
+    histogram of every pattern pass (the reference's ``int32_histogram``,
+    whose int32 accumulator must flush; int64 counts need no flush)."""
+    return torch.bincount(ids, minlength=length)
+
+
+def pattern_ids_fit_uint16(n_patterns: int) -> bool:
+    """True when every pattern id AND the mask sentinel (== n_patterns)
+    fit uint16: the one predicate deciding both the device-side narrowing
+    before a copy to the host and the host array's dtype."""
+    return n_patterns + 1 <= (1 << 16)
+
+
+def pattern_strides_for(level_counts: list[int]) -> tuple[list[int], int]:
+    """Mixed-radix strides and total pattern count for gamma vectors with
+    the given per-column level counts (digit c = gamma_c + 1)."""
+    strides, n_patterns = [], 1
+    for lc in level_counts:
+        strides.append(n_patterns)
+        n_patterns *= int(lc) + 1
+    return strides, n_patterns
+
+
+def patterns_matrix_for(level_counts: list[int]) -> np.ndarray:
+    """(n_patterns, C) int8 gamma vectors in mixed-radix pattern-id order."""
+    strides, n_patterns = pattern_strides_for(level_counts)
+    ids = np.arange(n_patterns, dtype=np.int64)
+    out = np.empty((n_patterns, len(level_counts)), np.int8)
+    for c, lc in enumerate(level_counts):
+        out[:, c] = ((ids // strides[c]) % (int(lc) + 1)).astype(np.int8) - 1
+    return out
+
+
+def _pattern_ids(G: torch.Tensor, strides: torch.Tensor) -> torch.Tensor:
+    """(b,) int32 pattern ids of a (b, C) gamma batch."""
+    return ((G.to(torch.int32) + 1) * strides[None, :]).sum(dim=1, dtype=torch.int32)
+
+
+# Device-to-host copies in flight before the host waits for the oldest: a
+# batch's copy is then long done when it is read, so the host never stalls
+# on the device between two batches
+_D2H_DEPTH = 3
+
+
+class _Downloads:
+    """Device-to-host copies in flight, read back in submission order. On a
+    CUDA device each tensor is copied with ``non_blocking=True``, on a side
+    stream that first waits for the compute stream, into one of a ring of
+    ``depth + 1`` pinned staging buffers (pinned memory is allocated once,
+    not per batch); the host synchronises on the copy's event before it
+    copies the values out. On the CPU a tensor is its own host array."""
+
+    def __init__(self, device: torch.device, depth: int = _D2H_DEPTH):
+        self.depth = depth
+        self.device = device
+        self._queue: deque = deque()
+        self._free: list[torch.Tensor] = []  # pinned uint8 staging buffers
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def submit(self, tensor: torch.Tensor, tag=None) -> None:
+        if self._stream is None:
+            self._queue.append((tag, tensor, None, None))
+            return
+        nbytes = tensor.numel() * tensor.element_size()
+        fits = [b for b in self._free if b.numel() >= nbytes]
+        if fits:
+            buf = fits[0]
+            self._free.remove(buf)
+        else:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+        host = buf[:nbytes].view(tensor.dtype).view(tensor.shape)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            host.copy_(tensor, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        tensor.record_stream(self._stream)
+        self._queue.append((tag, host, done, buf))
+
+    def _pop(self):
+        tag, host, done, buf = self._queue.popleft()
+        if done is None:
+            return tag, host.numpy()
+        done.synchronize()
+        out = host.numpy().copy()
+        self._free.append(buf)
+        return tag, out
+
+    def ready(self):
+        """Yield (tag, host array) for the copies beyond ``depth``."""
+        while len(self._queue) > self.depth:
+            yield self._pop()
+
+    def drain(self):
+        """Yield (tag, host array) for every copy still in flight."""
+        while self._queue:
+            yield self._pop()
+
+    def clear(self) -> None:
+        self._queue.clear()
+
+
 class GammaProgram:
     """Gamma computation bound to one encoded table on one device: ``cuda``
     unless ``device`` names another; raises when that is CUDA and no CUDA
@@ -617,6 +736,13 @@ class GammaProgram:
         self._packed = torch.from_numpy(packed.view(np.int32)).to(self.device)
         self._layout = layout
         self._cols = settings["comparison_columns"]
+        self.level_counts = [int(c["num_levels"]) for c in self._cols]
+        strides, self.n_patterns = pattern_strides_for(self.level_counts)
+        self._pattern_strides = strides
+        self._strides_dev = (
+            torch.tensor(strides, dtype=torch.int32, device=self.device)
+            if self.n_patterns <= MAX_PATTERNS else None
+        )
 
     def gamma_batch(self, idx_l, idx_r) -> torch.Tensor:
         """(b, n_cols) int8 gammas for index tensors on the program's device."""
@@ -629,25 +755,253 @@ class GammaProgram:
             [_spec_gamma(c, ctx, self.two_phase) for c in self._cols], dim=1
         )
 
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # The pattern-id pipeline
+    # ------------------------------------------------------------------
+
+    def _require_patterns(self) -> None:
+        if self._strides_dev is None:
+            raise ValueError(
+                f"pattern space {self.n_patterns} exceeds MAX_PATTERNS "
+                f"({MAX_PATTERNS}); use the gamma-matrix paths"
+            )
+
+    @property
+    def id_dtype(self):
+        """Host dtype of pattern ids (the sentinel included)."""
+        return np.uint16 if pattern_ids_fit_uint16(self.n_patterns) else np.int32
+
+    def pattern_ids(self, G: torch.Tensor, masked=None) -> torch.Tensor:
+        """(b,) int32 pattern ids of a device gamma batch; positions where
+        ``masked`` holds take the sentinel ``n_patterns``."""
+        pid = _pattern_ids(G, self._strides_dev)
+        if masked is not None:
+            pid = torch.where(masked, torch.full_like(pid, self.n_patterns), pid)
+        return pid
+
+    def narrow_ids(self, pid: torch.Tensor) -> torch.Tensor:
+        """The ids in the host dtype, narrowed ON the device (half the bytes
+        of the copy where they fit uint16)."""
+        return pid.to(torch.uint16) if self.id_dtype == np.uint16 else pid
+
+    def patterns_matrix(self) -> np.ndarray:
+        """(n_patterns, n_cols) int8: the gamma row each pattern id decodes
+        to."""
+        return patterns_matrix_for(self.level_counts)
+
+    def compute_pattern_ids(self, idx_l, idx_r, batch_size: int = DEFAULT_PAIR_BATCH):
+        """One pass over the pair set: (pattern_ids, counts). pattern_ids is
+        (n,) uint16 when the pattern space allows (int32 otherwise); counts
+        is the (n_patterns,) int64 histogram."""
+        self._require_patterns()
+        stream = PatternStream(self, batch_size)
+        for s in range(0, len(idx_l), max(batch_size, 1)):
+            stream.feed(np.asarray(idx_l[s : s + batch_size]),
+                        np.asarray(idx_r[s : s + batch_size]))
+        return stream.finish()
+
+    # ------------------------------------------------------------------
+    # The gamma matrix
+    # ------------------------------------------------------------------
+
+    def _iter_gamma_batches(self, idx_l, idx_r, batch_size: int):
+        """The one batched gamma loop, yielding ``(host_rows, device_G)``
+        per ``batch_size`` batch in order; copies to the host overlap the
+        next batches' device work. Shared by :meth:`compute_with_device`
+        and :meth:`iter_gamma_chunks`, so their blocks are identical."""
+        n = len(idx_l)
+        batch_size = max(min(batch_size, n), 1)
+        downloads = _Downloads(self.device)
+        for start in range(0, n, batch_size):
+            stop = min(start + batch_size, n)
+            G = self.gamma_batch(self._to_device(idx_l[start:stop]),
+                                 self._to_device(idx_r[start:stop]))
+            downloads.submit(G, G)
+            for dev, host in downloads.ready():
+                yield host, dev
+        for dev, host in downloads.drain():
+            yield host, dev
+
+    def iter_gamma_chunks(self, idx_l, idx_r, batch_size: int = DEFAULT_PAIR_BATCH):
+        """Yield host gamma blocks of ``batch_size`` pairs: the bounded
+        working-set twin of :meth:`compute_with_device` for consumers that
+        must never hold the whole matrix (``idx_l`` / ``idx_r`` may be
+        memmaps)."""
+        for host, _ in self._iter_gamma_batches(idx_l, idx_r, batch_size):
+            yield host
+
     def compute_with_device(self, idx_l, idx_r,
                             batch_size: int = DEFAULT_PAIR_BATCH,
                             keep_device: bool = False):
         """(host int8 gamma matrix, device gamma matrix | None), computed in
         ``batch_size`` batches to bound device memory."""
         n = len(idx_l)
-        batches = []
-        for s in range(0, n, batch_size):
-            to_dev = lambda a: torch.from_numpy(  # noqa: E731
-                np.asarray(a[s : s + batch_size], np.int64)
-            ).to(self.device)
-            batches.append(self.gamma_batch(to_dev(idx_l), to_dev(idx_r)))
-        dev = (
-            torch.cat(batches)
-            if batches
-            else torch.zeros((0, self.n_cols), dtype=GAMMA_DTYPE, device=self.device)
-        )
-        host = dev.cpu().numpy()
-        return host, (dev if keep_device else None)
+        host = np.empty((n, self.n_cols), np.int8)
+        kept = []
+        pos = 0
+        for rows, dev in self._iter_gamma_batches(idx_l, idx_r, batch_size):
+            host[pos : pos + len(rows)] = rows
+            pos += len(rows)
+            if keep_device:
+                kept.append(dev)
+        dev = None
+        if keep_device:
+            dev = (torch.cat(kept) if kept else
+                   torch.zeros((0, self.n_cols), dtype=GAMMA_DTYPE, device=self.device))
+        return host, dev
 
     def compute(self, idx_l, idx_r, batch_size: int = DEFAULT_PAIR_BATCH):
         return self.compute_with_device(idx_l, idx_r, batch_size)[0]
+
+
+class _StreamBatcher:
+    """Re-batches arbitrary-size (idx_l, idx_r) chunks into fixed
+    ``batch_size`` device batches (the same boundaries as one pass over the
+    concatenated pair order, so results equal the non-streamed paths').
+    Subclasses implement _emit(bl, br)."""
+
+    def __init__(self, batch_size: int):
+        self.batch_size = max(int(batch_size), 1)
+        self.total = 0
+        self._buf_l: np.ndarray | None = None
+        self._buf_r: np.ndarray | None = None
+        self._fill = 0
+
+    def feed(self, i: np.ndarray, j: np.ndarray) -> None:
+        b = self.batch_size
+        self.total += len(i)
+        pos = 0
+        if self._fill:
+            take = min(b - self._fill, len(i))
+            self._buf_l[self._fill : self._fill + take] = i[:take]
+            self._buf_r[self._fill : self._fill + take] = j[:take]
+            self._fill += take
+            pos = take
+            if self._fill == b:
+                self._emit(self._buf_l.copy(), self._buf_r.copy())
+                self._fill = 0
+        # full batches straight from the chunk (no buffering copy)
+        while len(i) - pos >= b:
+            self._emit(i[pos : pos + b], j[pos : pos + b])
+            pos += b
+        rest = len(i) - pos
+        if rest:
+            if self._buf_l is None:
+                self._buf_l = np.empty(b, i.dtype)
+                self._buf_r = np.empty(b, j.dtype)
+            self._buf_l[self._fill : self._fill + rest] = i[pos:]
+            self._buf_r[self._fill : self._fill + rest] = j[pos:]
+            self._fill += rest
+
+    def _flush_tail(self) -> None:
+        if self._fill:
+            self._emit(self._buf_l[: self._fill].copy(), self._buf_r[: self._fill].copy())
+            self._fill = 0
+
+    @staticmethod
+    def _drain_parts(parts: list[np.ndarray], out: np.ndarray) -> None:
+        """Fill a preallocated output from the buffered parts, releasing
+        each as it is copied (peak host RAM: output + one batch)."""
+        pos = 0
+        parts.reverse()
+        while parts:
+            part = parts.pop()
+            out[pos : pos + len(part)] = part
+            pos += len(part)
+        assert pos == len(out)
+
+
+class GammaStream(_StreamBatcher):
+    """Incremental gamma computation: feed pair chunks as blocking emits
+    them; device batches run while the host joins the next rule. finish()
+    returns (host G, device G | None) as GammaProgram.compute_with_device
+    would for the concatenated pairs.
+
+    ``keep_device_limit`` bounds the device memory held by kept batches:
+    once the pairs fed exceed it the device copies are dropped (the run is
+    headed for a regime that uploads per batch anyway)."""
+
+    def __init__(self, program: GammaProgram, batch_size: int, keep_device_limit: int = 0):
+        super().__init__(batch_size)
+        self.program = program
+        self.keep_limit = keep_device_limit
+        self._downloads = _Downloads(program.device)
+        self._out_parts: list[np.ndarray] = []
+        self._device_batches: list | None = [] if keep_device_limit > 0 else None
+
+    def _read(self, pairs) -> None:
+        for dev, host in pairs:
+            self._out_parts.append(host)
+            if self._device_batches is not None:
+                self._device_batches.append(dev)
+
+    def _emit(self, bl, br):
+        p = self.program
+        G = p.gamma_batch(p._to_device(bl), p._to_device(br))
+        if self._device_batches is not None and self.total > self.keep_limit:
+            self._device_batches = None  # too big: free the device copies
+        self._downloads.submit(G, G)
+        self._read(self._downloads.ready())
+
+    def finish(self):
+        self._flush_tail()
+        self._read(self._downloads.drain())
+        host = np.empty((self.total, self.program.n_cols), np.int8)
+        parts, self._out_parts = self._out_parts, []
+        self._drain_parts(parts, host)
+        dev = None
+        if self._device_batches is not None and self.total <= self.keep_limit:
+            batches = self._device_batches
+            dev = (torch.cat(batches) if batches else torch.zeros(
+                (0, self.program.n_cols), dtype=GAMMA_DTYPE, device=self.program.device))
+        return host, dev
+
+
+class PatternStream(_StreamBatcher):
+    """Incremental pattern-id pipeline: feed pair chunks, finish() returns
+    (pattern_ids, counts) as compute_pattern_ids would. The gamma matrix
+    never materialises, and the device pass runs WHILE blocking still
+    does instead of as a second sweep over the pair index."""
+
+    def __init__(self, program: GammaProgram, batch_size: int):
+        program._require_patterns()
+        super().__init__(batch_size)
+        self.program = program
+        self.id_dtype = program.id_dtype
+        self._parts: list[np.ndarray] = []
+        self._downloads = _Downloads(program.device)
+        self._counts = torch.zeros(program.n_patterns + 1, dtype=torch.int64,
+                                   device=program.device)
+
+    def _emit(self, bl, br):
+        p = self.program
+        pid = p.pattern_ids(p.gamma_batch(p._to_device(bl), p._to_device(br)))
+        self._counts += pattern_histogram(pid, p.n_patterns + 1)
+        self._downloads.submit(p.narrow_ids(pid))
+        self._parts.extend(host for _, host in self._downloads.ready())
+
+    def finish(self):
+        self._flush_tail()
+        self._parts.extend(host for _, host in self._downloads.drain())
+        pids = np.empty(self.total, self.id_dtype)
+        parts, self._parts = self._parts, []
+        self._drain_parts(parts, pids)
+        return pids, self._counts[:-1].cpu().numpy()
+
+
+def pattern_counts_from_gammas(G: np.ndarray, level_counts: list[int],
+                               batch_size: int = DEFAULT_PAIR_BATCH,
+                               device=None) -> np.ndarray:
+    """(n_patterns,) int64 pattern counts of a host gamma matrix, batched
+    through ``device`` (``cuda`` unless named)."""
+    device = resolve_device(device)
+    strides, n_patterns = pattern_strides_for(level_counts)
+    strides_dev = torch.tensor(strides, dtype=torch.int32, device=device)
+    total = torch.zeros(n_patterns, dtype=torch.int64, device=device)
+    for s in range(0, len(G), max(batch_size, 1)):
+        Gb = torch.from_numpy(np.ascontiguousarray(G[s : s + batch_size])).to(device)
+        total += pattern_histogram(_pattern_ids(Gb, strides_dev), n_patterns)
+    return total.cpu().numpy()

@@ -1,13 +1,15 @@
 """Encoding and host blocking of splink_tpu_torch against splink_tpu.
 
-The port copies splink_tpu's host join (minus the device, approximate and
-spill tiers, which raise), so on the same frame and rules the pair index
-arrays must be EQUAL, in order, for all three link types and every rule
-shape: equality conjunctions, derived keys, cross-column keys, residual
-predicates, sequential-rule dedup and the cartesian fallback.
+The port copies splink_tpu's host join and its ``spill_dir`` sink (minus
+the device and approximate tiers, which raise), so on the same frame and
+rules the pair index arrays must be EQUAL, in order, for all three link
+types and every rule shape: equality conjunctions, derived keys,
+cross-column keys, residual predicates, sequential-rule dedup and the
+cartesian fallback.
 """
 
 import copy
+import os
 import warnings
 
 import numpy as np
@@ -83,9 +85,22 @@ def test_pair_index_equals_reference(link_type, rules):
     np.testing.assert_array_equal(got.idx_r, want.idx_r)
 
 
-def test_spill_dir_raises():
+def test_spill_dir_raises(tmp_path):
+    """spill_dir raised NotImplementedError until the spill sink was ported
+    (hence the name); it now streams the pairs to memmaps, equal in order
+    to the reference's and to the in-RAM index, and release() reclaims the
+    directory."""
     s = complete_settings_dict(_settings("dedupe_only", ["l.city = r.city"]))
-    s["spill_dir"] = "somewhere"
-    table = data.encode_table(_frame(20, 4), s)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocking.block_using_rules(s, table)
+    s["spill_dir"] = str(tmp_path)
+    frame = _frame(40, 4)
+    got = blocking.block_using_rules(s, data.encode_table(frame, s))
+    rs = ref_complete(copy.deepcopy(s))
+    want = ref_blocking.block_using_rules(rs, ref_data.encode_table(frame, rs))
+    assert isinstance(got.idx_l, np.memmap) and got.spill_tmp.startswith(str(tmp_path))
+    assert got.n_pairs == want.n_pairs > 0
+    np.testing.assert_array_equal(got.idx_l, want.idx_l)
+    np.testing.assert_array_equal(got.idx_r, want.idx_r)
+    spill = got.spill_tmp
+    got.release()
+    want.release()
+    assert not os.path.exists(spill)

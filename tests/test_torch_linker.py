@@ -378,14 +378,10 @@ def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, 
     "override",
     [
         {"mesh": {"data": 2}},
-        {"spill_dir": "spill"},
         {"build_spill_dir": "spill"},
-        {"checkpoint_dir": "ckpt"},
         {"telemetry_dir": "tel"},
-        {"device_pair_generation": "on"},
         {"device_blocking": "on"},
         {"approx_blocking": True},
-        {"max_resident_pairs": 1024},
     ],
     ids=lambda o: next(iter(o)),
 )
@@ -394,3 +390,34 @@ def test_unported_settings_raise(dedupe_df, override):
     s.update(override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         splink_tpu_torch.Splink(s, df=dedupe_df, device="cpu").get_scored_comparisons()
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        {"spill_dir": "spill"},
+        {"checkpoint_dir": "ckpt"},
+        {"device_pair_generation": "on"},
+        {"max_resident_pairs": 1024},
+    ],
+    ids=lambda o: next(iter(o)),
+)
+def test_formerly_unported_regime_settings_follow_reference(tmp_path, dedupe_df, override):
+    """The settings that raised NotImplementedError before the regimes were
+    ported (test_unported_settings_raise listed them): both packages now
+    give the same frame, in row order with dtypes — ids and gammas equal,
+    probabilities within 1e-5 (the tolerance of the other path tests)."""
+    override = {k: str(tmp_path / v) if k.endswith("_dir") else v for k, v in override.items()}
+    s = settings(max_iterations=6)
+    s.update(override)
+    want = splink_tpu.Splink(copy.deepcopy(s), df=dedupe_df).get_scored_comparisons()
+    have = splink_tpu_torch.Splink(copy.deepcopy(s), df=dedupe_df,
+                                   device="cpu").get_scored_comparisons()
+    assert len(have) == len(want) > 30_000
+    assert list(have.columns) == list(want.columns)
+    assert list(have.dtypes) == list(want.dtypes)
+    for c in want.columns:
+        if want[c].dtype.kind == "f":
+            np.testing.assert_allclose(have[c], want[c], rtol=0, atol=1e-5, err_msg=c)
+        else:
+            assert have[c].equals(want[c]), c

@@ -7,7 +7,10 @@ kernels' wrappers included), then drives the linker on the CPU through
 every comparison kind: dmetaphone, qgram_jaccard, qgram_cosine,
 numeric_abs, a hand-written CASE for the general compiler, a registered
 custom comparison, and a dmetaphone blocking key. The run must succeed and
-leave no refused module loaded.
+leave no refused module loaded. It then drives the regimes past
+max_resident_pairs (max_resident_pairs 1024): the pattern regime through
+device pair generation, and a checkpointed estimate_parameters in the
+streamed regime (the custom comparison rules patterns out).
 """
 
 import os
@@ -45,7 +48,9 @@ import splink_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(splink_tpu_torch.__path__, "splink_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "native"):
+for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "native",
+             "pairgen", "parallel.streaming", "resilience.checkpoint", "resilience.faults",
+             "resilience.retry", "utils.logging_utils"):
     assert f"splink_tpu_torch.{want}" in names, want
 
 
@@ -94,6 +99,22 @@ p = out["match_probability"].to_numpy()
 assert len(out) > 1000 and np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()
 for c in ("first_name", "surname", "postcode", "city"):
     assert len(np.unique(out[f"gamma_{c}"])) > 2, c
+# the pattern regime: device pair generation past max_resident_pairs
+pattern = dict(settings, max_resident_pairs=1024,
+               comparison_columns=settings["comparison_columns"][:5])
+plinker = splink_tpu_torch.Splink(pattern, df=df, device="cpu")
+pout = plinker.get_scored_comparisons()
+assert plinker.device_pair_generation_active and len(pout) > 1000
+# a checkpointed estimate_parameters in the streamed regime
+import os, tempfile
+from splink_tpu_torch.resilience import load_checkpoint
+
+ckpt = tempfile.mkdtemp()
+slinker = splink_tpu_torch.Splink(dict(settings, max_resident_pairs=1024, max_iterations=4),
+                                  df=df, device="cpu")
+slinker.estimate_parameters(checkpoint_dir=ckpt)
+assert not slinker._use_pattern_pipeline()
+assert load_checkpoint(ckpt).iteration == len(slinker.params.param_history)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok", len(names), len(out))
