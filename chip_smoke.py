@@ -43,8 +43,18 @@ resident gamma program; and it holds every regime to the resident one
 on the subset (``regimes_parity``: the pattern regime virtual and
 materialised, the streamed regime of a custom comparison, checkpointed
 EM and its resume after an injected fault bit for bit, the OOM fallback,
-and the pattern regime on the card against the CPU). Every phase prints
-one JSON line; any failed check raises. The last lines are the
+and the pattern regime on the card against the CPU). Every full-size path
+blocks through the device sort-join tier (a tier counter says so); the
+``blocking_device`` phase holds that tier to the host join (pair sets)
+and to the device tier on the CPU (arrays, in order) at the main path's
+size, with and without masks, times both tiers' parts, and holds the
+bucket CSR to the host construction; ``large`` also trains through the
+host join and times the device tier alone; the ``spill`` phase writes the
+large job into the durable pair store and trains from it, kills a child
+process (``chip_smoke.py --spill-child <dir> <out.json>``) at
+``emit_segment`` and resumes it byte for byte, and holds the spill-fed
+streamed EM to the streamed-G path bit for bit. Every phase prints one
+JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
 
@@ -619,23 +629,35 @@ def native_phase(native, blocking, df, table):
 
 
 def zero_counts(strings_cuda, native, tf):
+    from splink_tpu_torch import blocking
+
     for k in strings_cuda.launches:
         strings_cuda.launches[k] = 0
     strings_cuda.variant_launches.clear()
     for k in native.calls:
         native.calls[k] = 0
+    for k in blocking.tiers:
+        blocking.tiers[k] = 0
     tf.device_aggregations.clear()
 
 
-def check_path_counts(what, strings_cuda, native):
-    """Raise unless the path just driven launched every CUDA kernel and went
-    through the native library for its encode and its blocking."""
+def check_path_counts(what, strings_cuda, native, tier="device"):
+    """Raise unless the path just driven launched every CUDA kernel, went
+    through the native library for its encode, and blocked once through
+    ``tier``: the device sort-join tier, or the host join (whose self join
+    is the native library's)."""
+    from splink_tpu_torch import blocking
+
     for k, v in strings_cuda.launches.items():
         if v <= 0:
             raise AssertionError(f"{what} launched no {k} kernel")
-    for k in ("encode_fixed_width", "self_join_pairs"):
-        if native.calls[k] <= 0:
-            raise AssertionError(f"{what} did not call the native {k}")
+    if native.calls["encode_fixed_width"] <= 0:
+        raise AssertionError(f"{what} did not call the native encode_fixed_width")
+    want = {"device": int(tier == "device"), "host": int(tier == "host")}
+    if blocking.tiers != want:
+        raise AssertionError(f"{what} blocked through {blocking.tiers}, expected {want}")
+    if tier == "host" and native.calls["self_join_pairs"] <= 0:
+        raise AssertionError(f"{what} did not call the native self_join_pairs")
 
 
 def check_unit_interval(df, col, dtype):
@@ -844,10 +866,14 @@ def large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen, 
                 df, dup_of, main_dtypes, device="cuda"):
     """The regimes past max_resident_pairs at full size: a job whose pairs
     exceed the default max_resident_pairs trains through device pair
-    generation (1); the same job through host blocking feeding the overlap
-    PatternStream gives the same counts and parameters (2); the trained
-    model streams its first scored chunks, each checked against the
-    resident gamma program (3)."""
+    generation (1); the same job through materialised pairs feeding the
+    overlap PatternStream gives the same counts and parameters, its pairs
+    emitted by the device sort-join tier (2) and by the host join (2b); the
+    trained model streams its first scored chunks, each checked against the
+    resident gamma program (3). Returns the phase's record and the virtual
+    run's pattern counts and (lambda, m, u), which the spill phase holds
+    its store-fed run to."""
+    from splink_tpu_torch import blocking_device
     on_card = device == "cuda"
     out = {"rows": len(df), "groups": int(df["blk"].nunique())}
     settings = json.loads(json.dumps(SETTINGS))
@@ -886,8 +912,9 @@ def large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen, 
         "lambda": float(virt.params.params["λ"]),
     }
 
-    # 2: host blocking feeding the overlap PatternStream: the same counts,
-    # the same parameters
+    # 2: materialised pairs feeding the overlap PatternStream, emitted by
+    # the device sort-join tier ("auto" past AUTO_MIN_PAIRS on the card):
+    # the same counts, the same parameters
     reset()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -905,13 +932,13 @@ def large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen, 
     if max(rel.values()) > VIRTUAL_RTOL:
         raise AssertionError(f"virtual vs materialised parameters differ: {rel}")
     mat_variants = {}
+    n_mat_batches = -(-pairs // int(virt.settings["pair_batch_size"]))
     if on_card:
-        mat_variants = check_large_variants(
-            strings_cuda, -(-pairs // int(virt.settings["pair_batch_size"])),
-            "the materialised pass")
-        check_path_counts("the large materialised path", strings_cuda, native)
+        mat_variants = check_large_variants(strings_cuda, n_mat_batches, "the materialised pass")
+        check_path_counts("the large materialised path", strings_cuda, native, tier="device")
     out["materialised"] = {
         "wall_s": mat_wall, "stage_s": dict(mat.stage_seconds), "pairs": mat._pairs.n_pairs,
+        "blocking_tier": "device", "blocking_device": dict(blocking_device.last_run),
         "counts_equal": True, "params_max_rel_diff": rel, "variant_launches": mat_variants,
         "native_calls": dict(native.calls),
         "host_pair_index_gb": 2 * mat._pairs.idx_l.nbytes / 1e9,
@@ -919,6 +946,52 @@ def large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen, 
         "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
     }
     del mat
+
+    # 2b: the same through the host join (device_blocking "off"), so the
+    # host join stays measured at full size
+    reset()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hj = splink_tpu_torch.Splink({**json.loads(json.dumps(settings)),
+                                  "device_pair_generation": "off", "device_blocking": "off"},
+                                 df=df, device=device)
+    hj.estimate_parameters()
+    hj_wall = time.perf_counter() - t0
+    if hj._pairs.n_pairs != pairs or not np.array_equal(hj._pattern_counts, counts):
+        raise AssertionError("pattern counts differ between virtual pairs and the host join's")
+    hj_rel = {k: max_rel_diff(a, b) for k, a, b in zip(
+        ("lambda", "m", "u"), hj.params.to_arrays()[:3], virt.params.to_arrays()[:3])}
+    if max(hj_rel.values()) > VIRTUAL_RTOL:
+        raise AssertionError(f"virtual vs host-join parameters differ: {hj_rel}")
+    if on_card:
+        check_large_variants(strings_cuda, n_mat_batches, "the host-join pass")
+        check_path_counts("the large host-join path", strings_cuda, native, tier="host")
+    out["materialised_host_join"] = {
+        "wall_s": hj_wall, "stage_s": dict(hj.stage_seconds), "pairs": hj._pairs.n_pairs,
+        "blocking_tier": "host", "counts_equal": True, "params_max_rel_diff": hj_rel,
+        "native_calls": dict(native.calls),
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+    }
+    if on_card:
+        # 2c: the device tier alone on the same rows (no consumer): its own
+        # parts at full size, beside the PatternStream it feeds in step 2
+        from splink_tpu_torch import blocking
+
+        hj._pairs = None
+        dev_settings = {**hj.settings, "device_blocking": "on"}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = blocking.block_using_rules(dev_settings, hj._table, device=device)
+        alone_wall = time.perf_counter() - t0
+        if alone.n_pairs != pairs:
+            raise AssertionError(f"the device tier alone emitted {alone.n_pairs} pairs")
+        del alone
+        out["device_tier_alone"] = {
+            "wall_s": alone_wall, **blocking_device.last_run,
+            "decode_compact_ms": decode_compact_ms(torch, blocking_device, dev_settings,
+                                                   hj._table, runs=1)}
+    del hj
 
     # 3: the trained model's first scored chunks from the virtual stream
     reset()
@@ -959,6 +1032,359 @@ def large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen, 
         except Exception as e:  # noqa: BLE001 - a measurement, not a check
             out["profile"] = {"error": f"{type(e).__name__}: {e}"[:300]}
     out["large_path_launches"] = out["virtual"]["launches"]
+    return out, counts, virt.params.to_arrays()[:3]
+
+
+# ----------------------------------------------------------------------
+# Device blocking and the durable pair store
+# ----------------------------------------------------------------------
+
+BLOCKING_RUNS = 3  # each tier, in turns; medians
+SPILL_MAIN_CHUNK = 1 << 22  # four segments of the main path's 16.1M pairs
+SPILL_KILL = "emit_segment@seq=2:kind=kill"  # after the second of four segments
+SPILL_MAX_RESIDENT = 8_388_608  # the main path's pairs exceed it
+# the second rule drops the first rule's pairs: its chunks are masked
+MASKED_RULES = ["l.blk = r.blk", "l.postcode = r.postcode"]
+SPILL_CUSTOM = {"custom_name": "postcode_custom", "custom_columns_used": ["postcode"],
+                "num_levels": 2,
+                "comparison": {"kind": "custom", "fn": "chip_smoke_postcode_exact"}}
+
+
+def pair_keys(p) -> np.ndarray:
+    """A pair index as sorted int64 keys i << 32 | j: equal arrays are equal
+    pair sets."""
+    return np.sort((np.asarray(p.idx_l).astype(np.int64) << 32) | np.asarray(p.idx_r))
+
+
+def decode_compact_ms(torch, blocking_device, settings, table, runs=BLOCKING_RUNS):
+    """Median host ms to a synchronize of the device tier's decode, masks
+    and compaction of every chunk on the card, with no copy off it."""
+    plan = blocking_device.build_device_plan(settings, table, device="cuda")
+    ctx = blocking_device._emission_context(
+        plan, int(settings.get("blocking_chunk_pairs") or blocking_device.DEFAULT_CHUNK_PAIRS))
+
+    def decode_all():
+        for r, rp in enumerate(plan.rules):
+            bs = blocking_device._rule_batch(ctx, rp)
+            for p0 in range(0, rp.total, bs):
+                blocking_device._emit_chunk(plan, r, ctx, bs, p0, min(p0 + bs, rp.total), False)
+
+    return host_ms(torch, decode_all, runs=runs, warmup=1)[0]
+
+
+def masked_check(torch, blocking, blocking_device, settings, table, out_dir):
+    """A masked rule set on the main path's rows: the second rule drops the
+    first rule's pairs, so its chunks compact on the card (the packed
+    layout) and carry a transfer digest computed there. The card's pairs
+    equal the CPU device tier's array for array and the host join's as a
+    set, and a 2-shard store written on the card equals, bins and manifest
+    (digests included), the one the CPU writes."""
+    import shutil
+    import tempfile
+
+    from splink_tpu_torch.spill import PairSpillStore
+
+    masked = {**settings, "blocking_rules": MASKED_RULES, "device_blocking": "on"}
+    t0 = time.perf_counter()
+    card = blocking.block_using_rules(masked, table, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = blocking.block_using_rules(masked, table, device="cpu")
+    if not (np.array_equal(card.idx_l, cpu.idx_l) and np.array_equal(card.idx_r, cpu.idx_r)):
+        raise AssertionError("masked rules: the device tier differs between the card and the CPU")
+    host = blocking.block_using_rules({**masked, "device_blocking": "off"}, table, device="cuda")
+    if not np.array_equal(pair_keys(card), pair_keys(host)):
+        raise AssertionError("masked rules: the device tier's pair set differs from the host "
+                             "join's")
+    root = tempfile.mkdtemp(prefix="masked_", dir=out_dir)
+    try:
+        stores = {}
+        for dev in ("cuda", "cpu"):
+            plan = blocking_device.build_device_plan(masked, table, device=dev)
+            store = PairSpillStore.attach(os.path.join(root, dev), np.int32, {})
+            t0 = time.perf_counter()
+            with store:
+                blocking_device.emit_pairs_sharded(plan, store, blocking_device.DEFAULT_CHUNK_PAIRS,
+                                                   n_shards=2)
+            store.finalize()
+            stores[dev] = (store_digest(root, dev), time.perf_counter() - t0,
+                           [sg.digest for sg in store.segments])
+        (want, _, _), (got, card_store_s, digests) = stores["cpu"], stores["cuda"]
+        if got != want or not any(d is not None for d in digests):
+            raise AssertionError("masked rules: the card's store differs from the CPU's, or "
+                                 "carries no digest")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rules": MASKED_RULES, "pairs": card.n_pairs, "card_s": card_s,
+            "card_equals_cpu_in_order": True, "pair_set_equals_host_join": True,
+            "store_segments": len(got["segments"]),
+            "digested_segments": sum(d is not None for d in digests),
+            "card_store_equals_cpu_store": True, "card_store_s": card_store_s}
+
+
+def blocking_device_phase(torch, blocking, blocking_device, settings, table, out_dir):
+    """The device sort-join tier against the host join at the main path's
+    size, through block_using_rules alone (no consumer): equal pair sets;
+    the card's device tier equal to the port's device tier on the CPU,
+    array for array; medians of 3 of each tier's parts; the device-only
+    time of the decode and compaction and of the segmented sort; the
+    bucket CSR on the ``blk`` codes equal to the host construction; and a
+    masked rule set (:func:`masked_check`)."""
+    runs = {"on": [], "off": []}
+    last = {}
+    for mode in ("on", "off") * BLOCKING_RUNS:
+        blocking.clear_key_code_cache(table)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pairs = blocking.block_using_rules({**settings, "device_blocking": mode}, table,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t0,
+               "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if mode == "on":
+            rec.update(blocking_device.last_run)
+        runs[mode].append(rec)
+        last[mode] = pairs
+    if blocking.tiers != {"device": BLOCKING_RUNS, "host": BLOCKING_RUNS}:
+        raise AssertionError(f"blocking tiers {blocking.tiers}")
+    on, off = last["on"], last["off"]
+    if on.n_pairs != off.n_pairs or not np.array_equal(pair_keys(on), pair_keys(off)):
+        raise AssertionError("the device tier's pair set differs from the host join's")
+
+    def med(mode, key):
+        return float(np.median([r[key] for r in runs[mode]]))
+
+    n = on.n_pairs
+    out = {"pairs": n, "rules": settings["blocking_rules"], "pair_sets_equal": True,
+           "device": {k: med("on", k) for k in ("wall_s", "plan_s", "emit_s", "finish_s",
+                                                  "peak_device_mem_gb")},
+           "host": {k: med("off", k) for k in ("wall_s", "peak_device_mem_gb")},
+           "runs": runs}
+    out["device"]["chunks"] = runs["on"][-1]["chunks"]
+    out["device"]["pairs_per_s"] = n / out["device"]["wall_s"]
+    out["host"]["pairs_per_s"] = n / out["host"]["wall_s"]
+    # the parts of the device tier: host key codes, the segmented sort (its
+    # uploads and the copy of the sorted rows back included), and the
+    # decode and compaction of every chunk on the card with no copy off it
+    blocking.clear_key_code_cache(table)
+    t0 = time.perf_counter()
+    codes = blocking._key_codes(table, ["blk"])
+    out["device"]["key_codes_s"] = time.perf_counter() - t0
+    ranks, _ = blocking._uid_ranks(table, settings["link_type"])
+    rows = np.arange(table.n_rows, dtype=np.int32)
+    zeros = np.zeros(table.n_rows, np.int32)
+    out["device"]["sort_ms"] = host_ms(torch, lambda: blocking_device.segment_sort(
+        codes, zeros, ranks, rows, torch.device("cuda")), runs=BLOCKING_RUNS, warmup=1)[0]
+    out["device"]["decode_compact_ms"] = decode_compact_ms(torch, blocking_device, settings,
+                                                           table)
+    # the card's device tier against the CPU's, array for array
+    t0 = time.perf_counter()
+    cpu = blocking.block_using_rules({**settings, "device_blocking": "on"}, table, device="cpu")
+    out["cpu_device_tier_s"] = time.perf_counter() - t0
+    if not (np.array_equal(on.idx_l, cpu.idx_l) and np.array_equal(on.idx_r, cpu.idx_r)):
+        raise AssertionError("the device tier's pairs differ between the card and the CPU")
+    out["card_equals_cpu_in_order"] = True
+    del last, on, off, cpu
+    # the serving bucket CSR on the card against the host construction
+    t0 = time.perf_counter()
+    csr = blocking_device.build_bucket_csr(codes, "cuda")
+    csr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h_rows, _, h_starts, h_sizes = blocking._sort_groups(
+        codes, np.flatnonzero(codes >= 0).astype(np.int32))
+    h_bucket = np.full(table.n_rows, -1, np.int32)
+    h_bucket[h_rows] = np.repeat(np.arange(len(h_sizes), dtype=np.int32), h_sizes)
+    host_csr_s = time.perf_counter() - t0
+    for name, got, want in zip(("rows_sorted", "starts", "sizes", "row_bucket"), csr,
+                               (h_rows, h_starts, h_sizes, h_bucket)):
+        if not np.array_equal(got, want.astype(np.int32)):
+            raise AssertionError(f"bucket CSR {name} differs from the host construction")
+    out["bucket_csr"] = {"buckets": len(h_sizes), "equal_to_host": True, "device_s": csr_s,
+                         "host_s": host_csr_s}
+    out["masked"] = masked_check(torch, blocking, blocking_device, settings, table, out_dir)
+    blocking.clear_key_code_cache(table)
+    return out
+
+
+def spill_child(build_dir: str, out_path: str) -> int:
+    """The kill-and-resume child: the main path's rows and settings through
+    build_spill_dir's emission (chunks of 2^22: four segments), on the
+    card. An injected kill at emit_segment ends it before it writes
+    ``out_path``."""
+    import splink_tpu_torch
+
+    df, _ = make_people(N_ROWS, SEED)
+    lk = splink_tpu_torch.Splink({**json.loads(json.dumps(SETTINGS)), "build_spill_dir": build_dir,
+                                  "blocking_chunk_pairs": SPILL_MAIN_CHUNK}, df=df)
+    pairs = lk._ensure_pairs()
+    with open(out_path, "w") as fh:
+        json.dump({"pairs": pairs.n_pairs, "segments": len(pairs.spill_store.segments),
+                   "blocking_s": lk.stage_seconds["blocking"]}, fh)
+    return 0
+
+
+def store_digest(directory: str, name: str = "pairs") -> dict:
+    """sha256 of both bins and the manifest's segment list of the store in
+    ``directory/name``."""
+    import hashlib
+
+    pairs_dir = os.path.join(directory, name)
+    out = {}
+    for name in ("idx_l.bin", "idx_r.bin"):
+        h = hashlib.sha256()
+        with open(os.path.join(pairs_dir, name), "rb") as fh:
+            for block in iter(lambda: fh.read(1 << 24), b""):
+                h.update(block)
+        out[name] = h.hexdigest()
+    with open(os.path.join(pairs_dir, "pair_manifest.json")) as fh:
+        out["segments"] = json.load(fh)["segments"]
+    return out
+
+
+def spill_phase(torch, splink_tpu_torch, big, large_counts, large_params, df, out_dir):
+    """The durable pair store on the card. (1) The large job written with
+    build_spill_dir and trained through pattern ids read from the store:
+    the counts equal the large phase's, the parameters within 1e-12. (2) At
+    the main path's size a child process is killed at emit_segment after
+    the second of four segments, and a fresh one resumes: both bins and the
+    manifest's segments byte-identical to an uninterrupted build's. (3)
+    With a custom column (no patterns) and max_resident_pairs below the
+    pairs, the spill-fed streamed EM is bit-identical to the streamed-G
+    path without build_spill_dir."""
+    import shutil
+    import tempfile
+
+    from splink_tpu_torch import blocking
+
+    root = tempfile.mkdtemp(prefix="spill_", dir=out_dir)
+    out = {}
+    try:
+        need = 8 * int(large_counts.sum()) + (1 << 30)
+        free = shutil.disk_usage(root).free
+        out["disk_free_gb"] = free / 1e9
+        if free < need:
+            raise AssertionError(f"{free / 1e9:.2f} GB free under {root}, the store needs "
+                                 f"{need / 1e9:.2f} GB")
+        # 1: the large job, written durably and trained from the store
+        for k in blocking.tiers:
+            blocking.tiers[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lk = splink_tpu_torch.Splink({**json.loads(json.dumps(SETTINGS)),
+                                      "device_pair_generation": "off",
+                                      "build_spill_dir": os.path.join(root, "large")}, df=big)
+        lk.estimate_parameters()
+        wall = time.perf_counter() - t0
+        store = lk._pairs.spill_store
+        if store is None or not store.completed or lk._P is None:
+            raise AssertionError("the large job did not train from a finished spill store")
+        if store.total_pairs != int(large_counts.sum()) or not np.array_equal(
+                lk._pattern_counts, large_counts):
+            raise AssertionError("the store-fed pattern counts differ from the large phase's")
+        rel = {k: max_rel_diff(a, b) for k, a, b in zip(
+            ("lambda", "m", "u"), lk.params.to_arrays()[:3], large_params)}
+        if max(rel.values()) > VIRTUAL_RTOL:
+            raise AssertionError(f"store-fed vs virtual parameters differ: {rel}")
+        stage = dict(lk.stage_seconds)
+        nbytes = 2 * store.idx_dtype.itemsize * store.total_pairs
+        t0 = time.perf_counter()
+        store.verify()
+        verify_s = time.perf_counter() - t0
+        out["large"] = {
+            "rows": len(big), "pairs": store.total_pairs, "segments": len(store.segments),
+            "bin_bytes": nbytes, "wall_s": wall, "stage_s": stage,
+            "emission_s": stage["blocking"], "bytes_per_s": nbytes / stage["blocking"],
+            "pairs_per_s": store.total_pairs / stage["blocking"],
+            "pattern_pass_s": stage["gammas_patterns"],
+            "counts_equal": True, "params_max_rel_diff": rel, "verify_sha256_s": verify_s,
+            "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        lk._pairs.release()
+        del lk, store
+        shutil.rmtree(os.path.join(root, "large"), ignore_errors=True)
+
+        # 2: kill and resume at the main path's size
+        full_dir = os.path.join(root, "full")
+        t0 = time.perf_counter()
+        full = splink_tpu_torch.Splink({**json.loads(json.dumps(SETTINGS)),
+                                        "build_spill_dir": full_dir,
+                                        "blocking_chunk_pairs": SPILL_MAIN_CHUNK}, df=df)
+        fpairs = full._ensure_pairs()
+        full_s = time.perf_counter() - t0
+        want = store_digest(full_dir)
+        if len(want["segments"]) != 4:
+            raise AssertionError(f"{len(want['segments'])} segments, expected 4")
+        fpairs.release()
+        del full, fpairs
+        part_dir = os.path.join(root, "part")
+        runs = {}
+        for tag, faults in (("killed", SPILL_KILL), ("resumed", None)):
+            env = {k: v for k, v in os.environ.items() if k != "SPLINK_TPU_FAULTS"}
+            if faults:
+                env["SPLINK_TPU_FAULTS"] = faults
+            res = os.path.join(root, f"{tag}.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--spill-child",
+                                   part_dir, res], env=env, capture_output=True, text=True,
+                                  timeout=600)
+            runs[tag] = {"rc": proc.returncode, "s": time.perf_counter() - t0}
+            if tag == "killed":
+                with open(os.path.join(part_dir, "pairs", "pair_manifest.json")) as fh:
+                    committed = len(json.load(fh)["segments"])
+                torn = os.path.getsize(os.path.join(part_dir, "pairs", "idx_l.bin"))
+                runs[tag].update(committed_segments=committed, bin_bytes_at_kill=torn)
+                if proc.returncode != -9 or committed != 2 or os.path.exists(res):
+                    raise AssertionError(f"the killed child: rc {proc.returncode}, {committed} "
+                                         f"committed segments: {proc.stderr[-2000:]}")
+            elif proc.returncode != 0:
+                raise AssertionError(f"the resumed child failed: {proc.stderr[-3000:]}")
+            else:
+                with open(res) as fh:
+                    runs[tag].update(json.load(fh))
+        got = store_digest(part_dir)
+        if got != want:
+            raise AssertionError("the resumed store differs from the uninterrupted build's")
+        out["kill_resume"] = {"pairs": runs["resumed"]["pairs"], "segments": 4,
+                              "uninterrupted_s": full_s, "runs": runs, "byte_identical": True,
+                              "bins_sha256": {k: want[k] for k in ("idx_l.bin", "idx_r.bin")}}
+
+        # 3: the spill-fed streamed EM against the streamed-G path
+        splink_tpu_torch.register_comparison("chip_smoke_postcode_exact", postcode_exact)
+        em = json.loads(json.dumps(SETTINGS))
+        em["comparison_columns"].append(json.loads(json.dumps(SPILL_CUSTOM)))
+        em["max_resident_pairs"] = SPILL_MAX_RESIDENT
+        res = {}
+        for tag, extra in (("spill_fed", {"build_spill_dir": os.path.join(root, "em")}),
+                           ("streamed_g", {})):
+            for k in blocking.tiers:
+                blocking.tiers[k] = 0
+            t0 = time.perf_counter()
+            lk = splink_tpu_torch.Splink({**json.loads(json.dumps(em)), **extra}, df=df)
+            lk.estimate_parameters()
+            res[tag] = (lk, time.perf_counter() - t0)
+            if "em_streamed" not in lk.stage_seconds or lk._use_pattern_pipeline():
+                raise AssertionError(f"{tag}: not the streamed regime")
+        (a, a_s), (b, b_s) = res["spill_fed"], res["streamed_g"]
+        if a._pairs.spill_store is None or b._pairs.spill_store is not None:
+            raise AssertionError("the spill-fed run has no store, or the streamed-G run has one")
+        if blocking.tiers != {"device": 1, "host": 0}:
+            raise AssertionError(f"the streamed-G run blocked through {blocking.tiers}")
+        if not (np.array_equal(a._pairs.idx_l, b._pairs.idx_l)
+                and np.array_equal(a._pairs.idx_r, b._pairs.idx_r)):
+            raise AssertionError("the spill store's pairs differ from the device tier's")
+        if params_state(a) != params_state(b):
+            raise AssertionError("the spill-fed EM differs from the streamed-G path")
+        out["spill_fed_em"] = {
+            "pairs": a._pairs.n_pairs, "max_resident_pairs": SPILL_MAX_RESIDENT,
+            "em_updates": len(a.params.param_history), "bit_identical": True,
+            "spill_fed": {"wall_s": a_s, "stage_s": dict(a.stage_seconds)},
+            "streamed_g": {"wall_s": b_s, "stage_s": dict(b.stage_seconds)},
+        }
+        a._pairs.release()
+        del a, b, res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -1099,7 +1525,16 @@ def main() -> int:
     import pandas
 
     import splink_tpu_torch
-    from splink_tpu_torch import blocking, case_compiler, data, gammas, native, pairgen, resilience
+    from splink_tpu_torch import (
+        blocking,
+        blocking_device,
+        case_compiler,
+        data,
+        gammas,
+        native,
+        pairgen,
+        resilience,
+    )
     from splink_tpu_torch import term_frequencies as tf
     from splink_tpu_torch.ops import qgram, strings, strings_cuda
 
@@ -1216,7 +1651,8 @@ def main() -> int:
         )
     result = linker._last_em_result
     emit("main_path", rows=N_ROWS, pairs=n_pairs, data_gen_s=gen_s, wall_s=wall,
-         stage_s=linker.stage_seconds, em_updates=int(result.n_updates),
+         stage_s=linker.stage_seconds, blocking_tier="device",
+         blocking_device=dict(blocking_device.last_run), em_updates=int(result.n_updates),
          em_converged=bool(result.converged), launches=launches,
          variant_launches=main_variants, native_calls=native_calls,
          planted_pairs=int(planted.sum()), planted_median_p=med_dup,
@@ -1228,6 +1664,14 @@ def main() -> int:
     # -- the native host library against its plain versions at the main
     # -- path's shapes --------------------------------------------------------
     emit("native", **native_phase(native, blocking, df, linker._table))
+
+    # -- the device sort-join tier against the host join at the main path's
+    # -- size ------------------------------------------------------------------
+    zero_counts(strings_cuda, native, tf)
+    out_dir = os.path.join(strings_cuda.build_dir(), "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    emit("blocking_device", **blocking_device_phase(torch, blocking, blocking_device,
+                                                    linker.settings, linker._table, out_dir))
 
     # -- the term-frequency path at full size: the fold in scoring, then the
     # -- ex-post aggregation on the card ---------------------------------------
@@ -1432,8 +1876,6 @@ def main() -> int:
     del w64
 
     # -- model JSON round trip on the card ------------------------------------
-    out_dir = os.path.join(strings_cuda.build_dir(), "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "model.json")
     gpu.save_model_as_json(path, overwrite=True)
     again = splink_tpu_torch.load_from_json(path, df=sub)
@@ -1529,10 +1971,15 @@ def main() -> int:
     t0 = time.perf_counter()
     big, big_dup = make_people(LARGE_ROWS, SEED, groups=LARGE_GROUPS)
     big_gen_s = time.perf_counter() - t0
-    large = large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen,
-                        lambda: zero_counts(strings_cuda, native, tf), big, big_dup,
-                        main_dtypes)
+    large, large_counts, large_params = large_phase(
+        torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen,
+        lambda: zero_counts(strings_cuda, native, tf), big, big_dup, main_dtypes)
     emit("large", data_gen_s=big_gen_s, **large)
+
+    # -- the durable pair store: the large job written and trained from it,
+    # -- kill and resume, the spill-fed streamed EM ---------------------------
+    emit("spill", **spill_phase(torch, splink_tpu_torch, big, large_counts, large_params,
+                                df, out_dir))
     del big, big_dup
     for r in rows:
         if r["name"] in KERNELS:
@@ -1551,4 +1998,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--spill-child"]:
+        sys.exit(spill_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -7,10 +7,14 @@ irregular, data-dependent join — and produces *pair index arrays* into the
 encoded table; the quadratic pair data itself never materialises on the host
 beyond two int arrays, and device gathers do the rest.
 
-This is the host join of splink_tpu/blocking.py. Its device-native
-sort-join tier (splink_tpu/blocking_device.py) is not ported yet:
-``device_blocking: "auto"`` takes the host join here and ``"on"`` raises
-(ROADMAP.md, Queue 1 item 8), as does ``approx_blocking`` (item 10).
+This is the host join of splink_tpu/blocking.py, and the dispatch to its
+device sort-join tier (blocking_device.py): ``device_blocking: "on"``
+takes the device tier on any device, the CPU included; ``"auto"`` takes it
+on the card once the exact rules' pair bound reaches
+``blocking_device.AUTO_MIN_PAIRS`` and keeps the host join on the CPU; a
+rule shape the device plan rejects falls back to the host join with a
+logged reason. ``tiers`` counts which tier served each call.
+``approx_blocking`` raises (ROADMAP.md, Queue 1 item 10).
 
 Pair-set semantics are preserved exactly:
   * equality-conjunction rules (``l.a = r.a AND l.b = r.b``) become hash
@@ -57,6 +61,10 @@ logger = logging.getLogger("splink_tpu_torch")
 
 _CARTESIAN_CHUNK = 1 << 22
 
+# Calls of block_using_rules by the tier that served them: "device" (the
+# sort-join tier of blocking_device.py) or "host" (the joins below).
+tiers = {"device": 0, "host": 0}
+
 
 @dataclass
 class PairIndex:
@@ -73,6 +81,11 @@ class PairIndex:
     # idx_l/idx_r are memmaps living in this directory; the linker adopts it
     # for lifetime management.
     spill_tmp: str | None = None
+    # When the pairs came through the DURABLE spill store (build_spill_dir:
+    # sharded emission with a resume manifest), this is the owning
+    # spill.PairSpillStore — caller-owned, never auto-deleted, and what the
+    # spill-fed streamed EM consumes directly.
+    spill_store: object | None = None
 
     @property
     def n_pairs(self) -> int:
@@ -84,7 +97,8 @@ class PairIndex:
         finalizer does the same reclaim at GC time on POSIX, but Windows
         refuses to unlink a file with a live mapping — callers that need
         portable, immediate reclamation use this instead of relying on
-        collection order. Idempotent."""
+        collection order. Idempotent; leaves a durable spill_store's files
+        untouched (those are caller-owned)."""
         import shutil
 
         for name in ("idx_l", "idx_r"):
@@ -102,6 +116,8 @@ class PairIndex:
         if self.spill_tmp is not None:
             shutil.rmtree(self.spill_tmp, ignore_errors=True)
             self.spill_tmp = None
+        if self.spill_store is not None:
+            self.spill_store.release_maps()
 
 
 def _proc_start_time(pid: int) -> int | None:
@@ -870,6 +886,7 @@ def block_using_rules(
     table: EncodedTable,
     n_left: int | None = None,
     pair_consumer=None,
+    device=None,
 ) -> PairIndex:
     """Generate candidate pairs for the given settings.
 
@@ -885,6 +902,9 @@ def block_using_rules(
             k's gammas or pattern ids while the host joins rule k+1,
             instead of a second sweep over the finished (possibly
             spilled) pair index.
+        device: where the device tier runs (``cuda`` unless named; the
+            linker passes its own). ``device_blocking`` "auto" keeps the
+            host join when it is the CPU.
 
     With ``spill_dir`` set, the chunks stream to memmapped files in a fresh
     ``splink_pairs_*`` directory under it instead of being kept in RAM.
@@ -892,6 +912,7 @@ def block_using_rules(
     link_type = settings["link_type"]
     rules = settings.get("blocking_rules") or []
     if not rules:
+        tiers["host"] += 1
         return cartesian_block(settings, table, n_left, pair_consumer)
 
     # Pair indices are stored int32 when the table allows (they always do —
@@ -902,13 +923,19 @@ def block_using_rules(
 
     if settings.get("approx_blocking"):
         _approx_not_ported()
-    if settings.get("device_blocking", "auto") == "on":
-        raise NotImplementedError(
-            'device_blocking: "on" needs the device sort-join tier '
-            "(ROADMAP.md, Queue 1 item 8), which splink_tpu_torch does "
-            'not port yet; "auto" and "off" take the host join'
-        )
     with _PairSink(settings.get("spill_dir"), idx_dtype) as sink:
+        # the device sort-join tier first; it returns None for the host join
+        # (a rule shape its plan rejects, or an "auto" job it does not take)
+        mode = settings.get("device_blocking", "auto")
+        if mode in ("auto", "on"):
+            from .blocking_device import device_block_rules
+
+            out = device_block_rules(settings, table, n_left, sink, pair_consumer, mode,
+                                     device=device)
+            if out is not None:
+                tiers["device"] += 1
+                return out
+        tiers["host"] += 1
         return _block_rules_into(
             sink, rules, settings, table, link_type, all_rows, n_left, pair_consumer
         )

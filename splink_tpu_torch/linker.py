@@ -28,7 +28,10 @@ The regimes are the reference's, chosen the same way:
 ``checkpoint_dir`` makes EM durable in the resident and streamed regimes
 (resilience/), and a device OOM in resident EM degrades to the streamed
 regime on the same device. ``spill_dir`` streams the host pair index to
-memmaps.
+memmaps. ``build_spill_dir`` writes the pairs through the device tier's
+sharded emission into a durable, resumable store (spill.py); past
+``max_resident_pairs`` settings that cannot use patterns then train by
+streaming gamma batches read from the store.
 
 Device rule: with no ``device`` the linker runs on ``cuda`` and raises when
 no CUDA device exists; it never carries on quietly on the CPU. Pass
@@ -99,7 +102,6 @@ def _check_ported_settings(settings: dict) -> None:
     """Raise for every setting that needs a module not ported yet."""
     for key, item in (
         ("mesh", "multi-GPU, Queue 1 item 7"),
-        ("build_spill_dir", "the durable spill store of device blocking, Queue 1 item 8"),
         ("telemetry_dir", "observability, Queue 1 item 11"),
     ):
         if settings.get(key):
@@ -277,11 +279,35 @@ class Splink:
     def _ensure_pairs(self) -> PairIndex:
         if self._pairs is None:
             table = self._ensure_encoded()
+            build_dir = self.settings.get("build_spill_dir") or None
+            if build_dir:
+                # The durable write path: sharded, manifest-committed,
+                # resumable emission into the caller-owned spill store.
+                # Overlap scoring is off here: a resumed build skips
+                # committed segments, so no per-chunk consumer can be fed
+                # consistently; EM reads the store afterwards instead.
+                from .blocking import clear_key_code_cache
+                from .blocking_device import spill_block_rules
+
+                with self._timed("blocking"):
+                    pairs = spill_block_rules(self.settings, table, self._n_left, build_dir,
+                                              device=self.device)
+                if pairs is not None:
+                    self._pairs = pairs
+                    logger.info("blocking produced %d candidate pairs (spill store)",
+                                pairs.n_pairs)
+                    clear_key_code_cache(table)
+                    return self._pairs
+                from .utils.logging_utils import warn_degraded
+
+                warn_degraded("spill_blocking", "host_blocking",
+                              "rule shapes unsupported by the device emission plan")
             stream = self._overlap_stream(table)
             with self._timed("blocking"):
                 self._pairs = block_using_rules(
                     self.settings, table, self._n_left,
                     pair_consumer=stream.feed if stream is not None else None,
+                    device=self.device,
                 )
             logger.info("blocking produced %d candidate pairs", self._pairs.n_pairs)
             self._maybe_spill_pairs()
@@ -740,6 +766,11 @@ class Splink:
         try:
             if self._use_pattern_pipeline():
                 self._run_em_patterns(compute_ll)
+            elif (self._ensure_pairs().spill_store is not None
+                  and self._pairs.n_pairs > int(self.settings["max_resident_pairs"])):
+                # spill-store-backed pairs past the resident cap: EM reads
+                # the store directly, gammas per chunk on the device
+                self._run_em_streamed_spill(self._pairs, compute_ll)
             else:
                 self._run_em(self._ensure_gammas(), compute_ll)
                 self._G_dev = None
@@ -898,6 +929,28 @@ class Splink:
             for s in range(0, len(G), batch):
                 yield G[s : s + batch]
 
+        self._run_em_streamed_driver(batches, compute_ll)
+
+    def _run_em_streamed_spill(self, pairs: PairIndex, compute_ll: bool) -> None:
+        """Manifest-fed streamed EM: the spill store IS the pair stream.
+        Each pass walks the store's committed memmaps in pair_batch_size
+        slices and computes each slice's gamma block on the device
+        (spill.iter_spill_gamma_batches); the gamma matrix never
+        materialises on the host. The batch boundaries are the streamed-G
+        path's over the same pair order, so the trajectory is bit-identical
+        to it."""
+        from .spill import iter_spill_gamma_batches
+
+        store = pairs.spill_store
+        program = self._gamma_program()
+        batch = int(self.settings["pair_batch_size"])
+
+        def batches():
+            return iter_spill_gamma_batches(store, program, batch)
+
+        self._last_em_result = None
+        logger.info("spill-fed streamed EM over %d pairs (%d manifest segments)",
+                    store.total_pairs, len(store.segments))
         self._run_em_streamed_driver(batches, compute_ll)
 
     def _run_em_streamed_driver(self, batches, compute_ll: bool) -> None:

@@ -15,15 +15,20 @@ Plan grammar (comma-separated events)::
     em_iteration@iter=4:kind=kill         SIGKILL own process at iteration 4
     resident_em@kind=oom                  device OOM entering the resident path
     segment@iter=10:kind=transient        error at a checkpointed-EM boundary
+    emit_segment@seq=2:kind=kill          SIGKILL between a spill segment's
+                                          bytes and its manifest commit
 
 The sites this package fires (SITES): ``resident_em`` (entering resident
 EM), ``segment`` (each checkpoint boundary of run_em_checkpointed),
-``batch_fetch`` (each batch of a streamed EM pass) and ``em_iteration``
-(each streamed update, after its checkpoint). ``iter`` / ``batch``
-constrain when an event matches (omitted = any); ``times`` bounds how often
-it fires (default 1), so a retried pass sees the fault once and then
-succeeds. The kill kind uses SIGKILL (no atexit, no finally blocks); the
-slow kind sleeps ``delay_ms`` (default 250) and returns.
+``batch_fetch`` (each batch of a streamed EM pass), ``em_iteration``
+(each streamed update, after its checkpoint) and, on the durable write
+path, ``emit_segment`` (blocking_device.emit_pairs_sharded, after a spill
+segment's bytes are appended and fsynced and before its manifest commit —
+the widest window a kill can tear; coords rule, shard, seq). ``iter`` /
+``batch`` constrain when an event matches (omitted = any); ``times``
+bounds how often it fires (default 1), so a retried pass sees the fault
+once and then succeeds. The kill kind uses SIGKILL (no atexit, no finally
+blocks); the slow kind sleeps ``delay_ms`` (default 250) and returns.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ _KINDS = ("transient", "oom", "kill", "slow")
 
 DEFAULT_SLOW_DELAY_MS = 250
 
-SITES = ("resident_em", "segment", "batch_fetch", "em_iteration")
+SITES = ("resident_em", "segment", "batch_fetch", "em_iteration", "emit_segment")
 
 
 class InjectedFault(RuntimeError):

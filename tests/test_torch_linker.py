@@ -378,9 +378,7 @@ def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, 
     "override",
     [
         {"mesh": {"data": 2}},
-        {"build_spill_dir": "spill"},
         {"telemetry_dir": "tel"},
-        {"device_blocking": "on"},
         {"approx_blocking": True},
     ],
     ids=lambda o: next(iter(o)),
@@ -399,13 +397,16 @@ def test_unported_settings_raise(dedupe_df, override):
         {"checkpoint_dir": "ckpt"},
         {"device_pair_generation": "on"},
         {"max_resident_pairs": 1024},
+        {"device_blocking": "on"},
+        {"build_spill_dir": "spill"},
     ],
     ids=lambda o: next(iter(o)),
 )
 def test_formerly_unported_regime_settings_follow_reference(tmp_path, dedupe_df, override):
-    """The settings that raised NotImplementedError before the regimes were
-    ported (test_unported_settings_raise listed them): both packages now
-    give the same frame, in row order with dtypes — ids and gammas equal,
+    """The settings that raised NotImplementedError before the regimes, the
+    device sort-join tier and the durable pair store were ported
+    (test_unported_settings_raise listed them): both packages now give the
+    same frame, in row order with dtypes — ids and gammas equal,
     probabilities within 1e-5 (the tolerance of the other path tests)."""
     override = {k: str(tmp_path / v) if k.endswith("_dir") else v for k, v in override.items()}
     s = settings(max_iterations=6)

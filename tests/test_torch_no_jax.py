@@ -10,7 +10,9 @@ custom comparison, and a dmetaphone blocking key. The run must succeed and
 leave no refused module loaded. It then drives the regimes past
 max_resident_pairs (max_resident_pairs 1024): the pattern regime through
 device pair generation, and a checkpointed estimate_parameters in the
-streamed regime (the custom comparison rules patterns out).
+streamed regime (the custom comparison rules patterns out). Last, the
+device sort-join tier (``device_blocking: "on"``) and ``build_spill_dir``
+with the spill-fed streamed EM.
 """
 
 import os
@@ -50,7 +52,7 @@ for name in names:
     importlib.import_module(name)
 for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "native",
              "pairgen", "parallel.streaming", "resilience.checkpoint", "resilience.faults",
-             "resilience.retry", "utils.logging_utils"):
+             "resilience.retry", "utils.logging_utils", "blocking_device", "spill"):
     assert f"splink_tpu_torch.{want}" in names, want
 
 
@@ -115,6 +117,19 @@ slinker = splink_tpu_torch.Splink(dict(settings, max_resident_pairs=1024, max_it
 slinker.estimate_parameters(checkpoint_dir=ckpt)
 assert not slinker._use_pattern_pipeline()
 assert load_checkpoint(ckpt).iteration == len(slinker.params.param_history)
+# the device sort-join tier, and the durable store feeding the spill-fed
+# streamed EM (the custom comparison rules patterns out)
+from splink_tpu_torch import blocking
+
+before = blocking.tiers["device"]
+dlinker = splink_tpu_torch.Splink(dict(settings, device_blocking="on"), df=df, device="cpu")
+dout = dlinker.get_scored_comparisons()
+assert blocking.tiers["device"] == before + 1 and len(dout) == len(out)
+spill = tempfile.mkdtemp()
+plinker = splink_tpu_torch.Splink(dict(settings, max_resident_pairs=1024, max_iterations=4,
+                                       build_spill_dir=spill), df=df, device="cpu")
+plinker.estimate_parameters()
+assert plinker._pairs.spill_store.completed and "em_streamed" in plinker.stage_seconds
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok", len(names), len(out))
