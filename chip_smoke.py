@@ -53,8 +53,18 @@ host join and times the device tier alone; the ``spill`` phase writes the
 large job into the durable pair store and trains from it, kills a child
 process (``chip_smoke.py --spill-child <dir> <out.json>``) at
 ``emit_segment`` and resumes it byte for byte, and holds the spill-fed
-streamed EM to the streamed-G path bit for bit. Every phase prints one
-JSON line; any failed check raises. The last lines are the
+streamed EM to the streamed-G path bit for bit. The ``serve`` phase
+freezes the main path's linker into a serving index (export, save, load,
+warmup over the whole bucket menu and the brown-out tier), answers 10,000
+typo'd queries in batches of 1,024 (two dense Jaro-Winkler launches and
+one Levenshtein launch a batch), times ``candidate_gather`` and
+``score_fused`` alone, serves 2,000 single records from 8 client threads
+through LinkageService, and raises unless fused equals unfused, served
+probabilities equal the offline ones (the TF engine's equal
+``tf_match_probability``), a CPU engine over the same artifact agrees
+within 1e-5, the indexes built with the device CSR, the host CSR and
+out of core have one fingerprint, and no kernel library is built after
+warmup. Every phase prints one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
 
@@ -1516,6 +1526,410 @@ def regimes_parity(splink_tpu_torch, resilience, sub, out_dir, device="cuda"):
     return out
 
 
+# ----------------------------------------------------------------------
+# Online serving: the main path's linker frozen into an index and queried
+# ----------------------------------------------------------------------
+
+SERVE_QUERIES = 10_000
+SERVE_CHUNK = 1024  # the default menu's largest query bucket
+SERVE_SERVICE_QUERIES = 2_000
+SERVE_CLIENTS = 8  # closed-loop client threads of the service run
+SERVE_COALESCE_MS = 2.0  # the service's batching window
+SERVE_DEADLINE_MS = 100.0  # each submitted request's own deadline
+SERVE_PARITY_ROWS = 1_000  # table rows queried for serve-equals-offline
+SERVE_CPU_QUERIES = 1_000  # the same queries on a CPU engine
+SERVE_CPU_ATOL = 1e-5
+SERVE_BROWNOUT_TOP_K = 2
+SERVE_OOC_CHUNK_ROWS = 262_144
+SERVE_SHAPES = ((16, 32), (1024, 256), (1024, 2048))  # the kernel rows' (Q, C)
+
+
+def make_queries(df, n: int, seed: int):
+    """``n`` query records drawn from the table: each with a one-character
+    typo in a non-null first_name, surname or city, ~1% with an unseen
+    first name or surname, ~2% with one more field nulled. Returns the
+    frame and each query's source row."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, len(df), n)
+    q = df.iloc[src].reset_index(drop=True).copy()
+    q["unique_id"] = np.arange(n) + 10 * len(df)
+    cols = {k: q[k].to_numpy(object).copy() for k in ("first_name", "surname", "city")}
+    which = rng.integers(0, 3, n)
+    for i in range(n):
+        for k in range(3):
+            name = ("first_name", "surname", "city")[(which[i] + k) % 3]
+            if isinstance(cols[name][i], str):
+                cols[name][i] = _typo(rng, cols[name][i])
+                break
+    unseen = np.flatnonzero(rng.random(n) < 0.01)
+    fresh = _pool(rng, len(unseen), 11, 11)  # pool strings are 4-10 letters long
+    for i, v in zip(unseen, fresh):
+        cols[("first_name", "surname")[i % 2]][i] = v
+    for k, v in cols.items():
+        q[k] = v
+    nulls = np.flatnonzero(rng.random(n) < 0.02)
+    fields = ("first_name", "surname", "city", "postcode", "dob")
+    for i in nulls:
+        q.at[i, fields[int(rng.integers(0, len(fields)))]] = None
+    return q, src, len(unseen), len(nulls)
+
+
+def near_tie_runs(p, valid, tol):
+    """Per query, the rank runs whose scores lie within ``tol`` of the
+    run's first (the top-k is sorted, so ties are adjacent)."""
+    k = p.shape[1]
+    for q in range(p.shape[0]):
+        r = 0
+        while r < k:
+            e = r + 1
+            while e < k and valid[q, e] and abs(float(p[q, e]) - float(p[q, r])) <= tol:
+                e += 1
+            yield q, r, e
+            r = e
+
+
+def check_topk_close(want, got, tol, what):
+    """Raise unless the counts and validity are equal, the probabilities
+    within ``tol``, and the rows equal wherever the scores are not tied
+    within ``tol`` (within a tied run the rows must be the same set,
+    unless the run reaches rank k-1 and may continue past k)."""
+    wp, wr, wv, wn = want
+    gp, gr, gv, gn = got
+    if not (np.array_equal(wn, gn) and np.array_equal(wv, gv)):
+        raise AssertionError(f"{what}: candidate counts or validity differ")
+    dp = float(np.abs(wp[wv].astype(np.float64) - gp[gv].astype(np.float64)).max(initial=0))
+    if dp > tol:
+        raise AssertionError(f"{what}: probabilities differ by {dp}")
+    k, tied = wp.shape[1], 0
+    for q, r, e in near_tie_runs(wp, wv, tol):
+        a, b = wr[q, r:e][wv[q, r:e]], gr[q, r:e][gv[q, r:e]]
+        if e - r == 1 or not wv[q, r]:
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: query {q} rank {r} rows differ outside a tie")
+        elif e < k or not wv[q, k - 1]:
+            tied += e - r
+            if set(a.tolist()) != set(b.tolist()):
+                raise AssertionError(f"{what}: query {q} tied ranks {r}-{e} hold other rows")
+    return dp, tied
+
+
+def device_bytes(state) -> int:
+    """Bytes of every tensor in a device-state dict (tuples and FSParams
+    included)."""
+    total = 0
+    for v in state.values():
+        for t in (v if isinstance(v, tuple) else (v,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def serve_pairs_offline(linker, rows, tf=False):
+    """{(min uid, max uid): offline probability} of every pair of the
+    linker's pair set with an endpoint in ``rows`` (table row = uid here):
+    ``match_probability`` as the linker scores it, or with ``tf``
+    ``tf_match_probability`` through the linker's own TF fold."""
+    il, ir = linker._pairs.idx_l, linker._pairs.idx_r
+    sel = np.isin(il, rows) | np.isin(ir, rows)
+    G = linker._G[sel]
+    p, _, _, z = linker._score_batched(G, want_z=tf)
+    if tf:
+        p = linker._tf_fold_pairs(z, il[sel], ir[sel], linker._tf_fold_ctx())
+    uid = linker._table.unique_id
+    a, b = uid[il[sel]], uid[ir[sel]]
+    return {(int(min(x, y)), int(max(x, y))): v for x, y, v in zip(a, b, p)}
+
+
+def check_serve_offline(out, index, rows, offline, what):
+    """Every served (query row, match) probability equals the offline one
+    (==), and the served pair set equals the offline set for those rows."""
+    top_p, top_rows, top_valid, _ = out
+    uid = index.unique_id
+    served = set()
+    for qi, row_ in enumerate(rows):
+        for r in np.flatnonzero(top_valid[qi]):
+            m = int(uid[top_rows[qi, r]])
+            if m == int(row_):
+                continue
+            key = (min(int(row_), m), max(int(row_), m))
+            if key not in offline:
+                raise AssertionError(f"{what}: served pair {key} is not an offline pair")
+            if offline[key] != top_p[qi, r]:
+                raise AssertionError(f"{what}: pair {key} served {top_p[qi, r]!r}, "
+                                     f"offline {offline[key]!r}")
+            served.add(key)
+    if served != set(offline):
+        raise AssertionError(f"{what}: {len(set(offline) - served)} offline pairs not served")
+    return len(served)
+
+
+def serve_phase(torch, strings_cuda, native, tf, linker, tf_linker, df, out_dir):
+    """The serving tier at the main path's size; returns (fields, captured
+    kernel inputs at SERVE_SHAPES)."""
+    import shutil
+    import threading
+    import warnings
+
+    from splink_tpu_torch.obs.metrics import compile_requests
+    from splink_tpu_torch.obs.reqtrace import PhaseProfile
+    from splink_tpu_torch.serve import LinkageService, QueryEngine, load_index
+    from splink_tpu_torch.serve.engine import candidate_gather, encode_query, score_fused
+    from splink_tpu_torch.utils.logging_utils import DegradationWarning
+
+    idx_dir = os.path.join(out_dir, "serve_index")
+    shutil.rmtree(idx_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    built = linker.export_index()
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built.save(idx_dir)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = load_index(idx_dir)
+    load_s = time.perf_counter() - t0
+    if index.content_fingerprint() != built.content_fingerprint():
+        raise AssertionError("the loaded index's fingerprint differs from the built one's")
+    mem0 = torch.cuda.memory_allocated()
+    state = index.device_state()
+    torch.cuda.synchronize()
+    state_bytes = device_bytes(state)
+    engine = QueryEngine(index, brownout_top_k=SERVE_BROWNOUT_TOP_K)
+    t0 = time.perf_counter()
+    warm = engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    builds_after_warmup = compile_requests()
+    menu = engine.policy.warmup_combinations()
+    if warm["combinations"] != len(menu) + len(engine.policy.query_buckets):
+        raise AssertionError(f"warmup ran {warm}")
+    fields = {
+        "rows": index.n_rows, "rules": len(index.rules), "lanes": index.n_lanes,
+        "export_s": export_s, "save_s": save_s, "load_s": load_s, "warmup_s": warmup_s,
+        "warmup": warm, "device_state_bytes": state_bytes,
+        "device_memory_after_state_bytes": torch.cuda.memory_allocated() - mem0,
+        "largest_block": int(max(int(r.sizes.max()) for r in index.rules)),
+        "top_k": engine.top_k, "brownout_top_k": engine.brownout_top_k,
+        "menu": engine.policy.warmup_combinations(),
+    }
+
+    # -- the batch path: 10,000 typo'd queries in chunks of 1,024 ---------
+    qdf, src, n_unseen, n_null = make_queries(df, SERVE_QUERIES, SEED + 3)
+    zero_counts(strings_cuda, native, tf)
+    chunks, per_shape, encode_ms, profile = [], {}, [], PhaseProfile()
+    outs = []
+    for start in range(0, SERVE_QUERIES, SERVE_CHUNK):
+        part = qdf.iloc[start:start + SERVE_CHUNK]
+        t0 = time.perf_counter()
+        batch = engine.encode(part)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        need = max(int(index.candidate_counts(batch.qbuckets).max(initial=0)), engine.top_k)
+        shape = (engine.policy.query_bucket(len(part)), engine.policy.candidate_bucket(need))
+        t0 = time.perf_counter()
+        outs.append(engine.query_arrays(part, profile=profile))
+        ms = (time.perf_counter() - t0) * 1e3
+        per_shape.setdefault(f"{shape[0]}x{shape[1]}", []).append(ms)
+        chunks.append(shape)
+    # the query_arrays calls only (each encodes its chunk again)
+    batch_wall = sum(sum(v) for v in per_shape.values()) / 1e3
+    launches = dict(strings_cuda.launches)
+    variants = dict(strings_cuda.variant_launches)
+    n_batches = len(chunks)
+    want = {"jaro_winkler/u8/w1": 2 * n_batches, "levenshtein/u8/w1": n_batches}
+    if variants != want:
+        raise AssertionError(f"serve batch path launched {variants}, expected {want}")
+    out = tuple(np.concatenate([o[i] for o in outs]) for i in range(4))
+    top_p, top_rows, top_valid, n_cand = out
+    if not (np.isfinite(top_p).all() and (top_p[top_valid] >= 0).all()
+            and (top_p[top_valid] <= 1).all() and top_p.dtype == np.float32):
+        raise AssertionError("served probabilities are not float32 in [0, 1]")
+    uid = index.unique_id
+    hit = (uid[top_rows] == df["unique_id"].to_numpy()[src][:, None]) & top_valid
+    recall = float(hit.any(axis=1).mean())
+    if recall < 0.5:
+        raise AssertionError(f"only {recall:.3f} of the queries found their source record")
+    fields["batch_path"] = {
+        "queries": SERVE_QUERIES, "unseen": n_unseen, "nulled": n_null,
+        "batches": n_batches, "wall_s": batch_wall,
+        "queries_per_s": SERVE_QUERIES / batch_wall,
+        "median_batch_ms": {k: float(np.median(v)) for k, v in per_shape.items()},
+        "batches_per_shape": {k: len(v) for k, v in per_shape.items()},
+        "median_encode_ms": float(np.median(encode_ms)),
+        "execute_s": profile.execute_s, "transfer_s": profile.transfer_s,
+        "launches": launches, "variant_launches": variants,
+        "launches_per_batch": {k: v / n_batches for k, v in launches.items()},
+        "queries_with_candidates": int((n_cand > 0).sum()),
+        "source_in_top_k": recall,
+    }
+
+    # -- the programs alone at 1024 x 256 and 1024 x 2048 ------------------
+    part = qdf.iloc[:SERVE_CHUNK]
+    batch = engine.encode(part)
+    dev = index.device_state()
+    cols = index.settings["comparison_columns"]
+    programs = {}
+    for cap in (256, 2048):
+        packed = torch.from_numpy(batch.packed.view(np.int32)).cuda()
+        qb = torch.from_numpy(batch.qbuckets).cuda()
+        encode_query(packed, qb, SERVE_CHUNK)
+
+        def gather(cap=cap, qb=qb):
+            return candidate_gather(qb, dev["starts"], dev["sizes"], dev["rows"],
+                                    dev["row_bucket"], cap)
+
+        cand, valid, _ = gather()
+
+        def fused(packed=packed, cand=cand, valid=valid):
+            return score_fused(index.layout, cols, engine.top_k, packed, dev["packed"],
+                               cand, valid, dev["params"])
+
+        programs[f"{SERVE_CHUNK}x{cap}"] = {
+            "encode_query_ms": cuda_ms(torch, lambda: encode_query(packed, qb, SERVE_CHUNK)),
+            "candidate_gather_ms": cuda_ms(torch, gather),
+            "candidate_gather_call_ms": cuda_ms(torch, gather, device_only=False),
+            "score_fused_ms": cuda_ms(torch, fused),
+            "score_fused_call_ms": cuda_ms(torch, fused, device_only=False),
+        }
+    fields["programs"] = programs
+
+    # -- kernel inputs at the serve shapes (captured after the counts) -----
+    captured = {}
+    for q_n, cap in SERVE_SHAPES:
+        b = engine.encode(qdf.iloc[:q_n])
+        strings_cuda.capture = {}
+        with engine._swap_lock, engine._on_device():
+            engine._dispatch(engine.top_k, cap, torch.from_numpy(b.packed.view(np.int32)).cuda(),
+                             torch.from_numpy(b.qbuckets).cuda(), q_n)
+        torch.cuda.synchronize()
+        captured[(q_n, cap)], strings_cuda.capture = strings_cuda.capture, None
+
+    # -- fused against unfused on the card ---------------------------------
+    unfused = QueryEngine(index, fused=False)
+    part = qdf.iloc[:2 * SERVE_CHUNK]
+    a, b = engine.query_arrays(part), unfused.query_arrays(part)
+    if not all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("fused and unfused serving differ on the card")
+
+    # -- served against offline: table rows queried with a top-k above the
+    # -- largest block --------------------------------------------------------
+    rng = np.random.default_rng(SEED + 4)
+    rows = np.sort(rng.choice(len(df), SERVE_PARITY_ROWS, replace=False))
+    k_sub = fields["largest_block"] + 1
+    sub_engine = QueryEngine(index, top_k=k_sub)
+    n_off = check_serve_offline(sub_engine.query_arrays(df.iloc[rows]), index, rows,
+                                serve_pairs_offline(linker, rows), "serve vs offline")
+
+    # -- the TF engine over the TF path's linker ---------------------------
+    t0 = time.perf_counter()
+    tf_index = tf_linker.export_index()
+    tf_export_s = time.perf_counter() - t0
+    tf_engine = QueryEngine(tf_index)
+    tf_warm = tf_engine.warmup()
+    if not tf_engine.tf_active:
+        raise AssertionError("the TF engine does not fold")
+    zero_counts(strings_cuda, native, tf)
+    t0 = time.perf_counter()
+    for start in range(0, SERVE_QUERIES, SERVE_CHUNK):
+        tf_engine.query_arrays(qdf.iloc[start:start + SERVE_CHUNK])
+    tf_wall = time.perf_counter() - t0
+    tf_variants = dict(strings_cuda.variant_launches)
+    if tf_variants != want:
+        raise AssertionError(f"TF serve path launched {tf_variants}, expected {want}")
+    tf_sub = QueryEngine(tf_index, top_k=k_sub)
+    n_tf_off = check_serve_offline(tf_sub.query_arrays(df.iloc[rows]), tf_index, rows,
+                                   serve_pairs_offline(tf_linker, rows, tf=True),
+                                   "TF serve vs offline tf_match_probability")
+    fields["tf_engine"] = {"export_s": tf_export_s, "warmup": tf_warm, "wall_s": tf_wall,
+                           "queries_per_s": SERVE_QUERIES / tf_wall,
+                           "variant_launches": tf_variants,
+                           "offline_pairs_equal": n_tf_off}
+    fields["serve_vs_offline"] = {"rows": SERVE_PARITY_ROWS, "top_k": k_sub,
+                                  "pairs_equal": n_off}
+
+    # -- the same queries on a CPU engine over the same artifact ------------
+    cpu_engine = QueryEngine(load_index(idx_dir, device="cpu"))
+    t0 = time.perf_counter()
+    cpu_out = cpu_engine.query_arrays(qdf.iloc[:SERVE_CPU_QUERIES])
+    cpu_s = time.perf_counter() - t0
+    card = tuple(a[:SERVE_CPU_QUERIES] for a in out)
+    dp, tied = check_topk_close(card, cpu_out, SERVE_CPU_ATOL, "serve card vs CPU")
+    fields["cuda_vs_cpu"] = {"queries": SERVE_CPU_QUERIES, "max_abs_dp": dp,
+                             "ranks_in_ties": tied, "cpu_s": cpu_s}
+
+    # -- the bucket CSR built on the card and on the host; the out-of-core
+    # -- build at full size ------------------------------------------------
+    fps, build_s = {}, {}
+    saved = dict(linker.settings)
+    try:
+        for mode in ("on", "off"):
+            linker.settings["device_blocking"] = mode
+            t0 = time.perf_counter()
+            fps[mode] = linker.export_index().content_fingerprint()
+            build_s[mode] = time.perf_counter() - t0
+        linker.settings["device_blocking"] = saved.get("device_blocking", "auto")
+        ooc_dir = os.path.join(out_dir, "serve_build")
+        shutil.rmtree(ooc_dir, ignore_errors=True)
+        linker.settings.update(build_spill_dir=ooc_dir, build_spill_chunk_rows=SERVE_OOC_CHUNK_ROWS)
+        t0 = time.perf_counter()
+        ooc = linker.export_index()
+        build_s["out_of_core"] = time.perf_counter() - t0
+        fps["out_of_core"] = ooc.content_fingerprint()
+        del ooc
+    finally:
+        linker.settings.clear()
+        linker.settings.update(saved)
+    fps["auto"] = index.content_fingerprint()
+    if len(set(fps.values())) != 1:
+        raise AssertionError(f"serving index fingerprints differ: {fps}")
+    shutil.rmtree(os.path.join(out_dir, "serve_build"), ignore_errors=True)
+    fields["fingerprints_equal"] = sorted(fps)
+    fields["build_s"] = build_s
+
+    # -- the service: closed-loop clients submitting single records ---------
+    records = qdf.iloc[:SERVE_SERVICE_QUERIES].to_dict(orient="records")
+    results = [None] * len(records)
+
+    def client(t):
+        for i in range(t, len(records), SERVE_CLIENTS):
+            results[i] = svc.query(records[i], timeout=60, deadline_ms=SERVE_DEADLINE_MS)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", DegradationWarning)
+        svc = LinkageService(engine, deadline_ms=SERVE_COALESCE_MS)
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        svc_wall = time.perf_counter() - t0
+        summary = svc.latency_summary()
+        svc.close()
+    if any(r is None for r in results):
+        raise AssertionError("a service request did not resolve")
+    differ = 0
+    for i, res in enumerate(results):
+        if res.shed or res.degraded:
+            continue
+        want_m = [(uid[top_rows[i, r]], float(top_p[i, r]))
+                  for r in range(top_p.shape[1]) if top_valid[i, r]]
+        differ += res.matches != want_m
+    if differ:
+        raise AssertionError(f"{differ} service answers differ from the batch path's")
+    fields["service"] = {
+        "clients": SERVE_CLIENTS, "queries": SERVE_SERVICE_QUERIES,
+        "coalesce_window_ms": SERVE_COALESCE_MS, "request_deadline_ms": SERVE_DEADLINE_MS,
+        "wall_s": svc_wall, "degradation_warnings": len(caught),
+        "degraded": sum(r.degraded for r in results),
+        **{k: summary[k] for k in ("served", "shed", "batches", "timeouts", "p50_ms",
+                                   "p95_ms", "p99_ms", "mean_ms", "brownout_episodes")
+           if k in summary},
+        "queries_per_s": SERVE_SERVICE_QUERIES / svc_wall,
+        "shed_reasons": sorted({r.reason for r in results if r.shed}),
+    }
+    if compile_requests() != builds_after_warmup:
+        raise AssertionError("kernel libraries were built after warmup")
+    fields["builds_after_warmup"] = compile_requests() - builds_after_warmup
+    return fields, captured
+
+
 def main() -> int:
     import torch
 
@@ -1965,6 +2379,23 @@ def main() -> int:
          em_updates={"cuda": kgpu._last_em_result.n_updates,
                      "cpu": kcpu._last_em_result.n_updates},
          roundtrip_bit_identical=True)
+
+    # -- online serving at the main path's size: the trained linker frozen
+    # -- into an index, batches, the service, the TF engine, the gates --------
+    t0 = time.perf_counter()
+    serve, serve_captured = serve_phase(torch, strings_cuda, native, tf, linker, tf_linker,
+                                        df, out_dir)
+    serve_launches = serve["batch_path"]["launches"]
+    for (q_n, cap), args in serve_captured.items():
+        for kernel in KERNELS:
+            rows.append(row(
+                f"{kernel}/serve_{q_n}x{cap}", kernel, args[kernel], [f"{kernel}/u8/w1"],
+                serve_launches[kernel], path="serve",
+                launches_per_batch=serve["batch_path"]["launches_per_batch"][kernel],
+                form=f"w1, dense: serve batch of {q_n} queries x {cap} candidate slots "
+                     f"({'first_name' if kernel == 'jaro_winkler' else 'city'})"))
+    del serve_captured
+    emit("serve", phase_s=time.perf_counter() - t0, **serve)
 
     # -- jobs past max_resident_pairs at full size: device pair generation,
     # -- the overlap PatternStream, the score stream ----------------------------

@@ -6,8 +6,8 @@ df_l=..., df_r=...)``, ``get_scored_comparisons()``,
 ``manually_apply_fellegi_sunter_weights()``, the streaming entry points
 (``stream_scored_comparisons``, ``stream_scored_comparisons_after_em``,
 ``stream_tf_adjusted_comparisons``), ``make_term_frequency_adjustments()``,
-``save_model_as_json()`` and module-level ``load_from_json`` — plus a
-``device`` argument.
+``save_model_as_json()``, ``export_index()`` (the serving artifact,
+serve/) and module-level ``load_from_json`` — plus a ``device`` argument.
 
 The regimes are the reference's, chosen the same way:
 
@@ -1075,6 +1075,24 @@ class Splink:
     @check_types
     def save_model_as_json(self, path: str | os.PathLike, overwrite: bool = False):
         self.params.save_params_to_json_file(path, overwrite=overwrite)
+
+    def export_index(self, path: str | os.PathLike | None = None):
+        """Freeze this linker into an online-serving artifact
+        (:class:`splink_tpu_torch.serve.LinkageIndex`) on the linker's
+        device: the encoded input table as the packed reference matrix, a
+        per-blocking-rule hash-bucket index, the CURRENT parameters (train
+        first, or load a model) and the term-frequency tables. With
+        ``path`` the artifact is also saved (atomic, versioned, hash-bound;
+        splink_tpu's format); either way the index is returned, ready for
+        ``splink_tpu_torch.serve.QueryEngine``. The ``export_index`` stage
+        times it."""
+        from .serve.index import build_index
+
+        with self._timed("export_index"):
+            index = build_index(self)
+            if path is not None:
+                index.save(path)
+        return index
 
     # ------------------------------------------------------------------
     # Output assembly

@@ -24,9 +24,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
 
+from ..obs.metrics import note_build
 from ..ops.strings_cuda import build_dir
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src", "host_kernels.cpp")
@@ -69,8 +71,10 @@ def build_command(out: str) -> list[str]:
 
 
 def _compile(path: str) -> None:
+    """Run g++ into ``path``; the build counts once in ``obs.metrics``."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
     proc = subprocess.run(build_command(tmp), capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):
@@ -79,6 +83,7 @@ def _compile(path: str) -> None:
             f"g++ failed to build {_SRC}:\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, path)
+    note_build(time.perf_counter() - t0)
 
 
 def build() -> str:

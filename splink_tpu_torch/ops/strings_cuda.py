@@ -38,8 +38,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
+
+from ..obs.metrics import note_build
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -127,10 +130,12 @@ def library_path(name: str) -> str:
 def build() -> dict[str, str]:
     """Compile every csrc/<kernel>.cu whose library is not built yet, one
     nvcc per source, all started together; returns {kernel: library path}.
-    Raises with nvcc's output if any build fails."""
+    A build that ran counts once in ``obs.metrics``. Raises with nvcc's
+    output if any build fails."""
     paths = {name: library_path(name) for name in KERNELS}
     todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
     if todo:
+        t0 = time.perf_counter()
         os.makedirs(build_dir(), exist_ok=True)
         procs = {}
         for name, path in todo.items():
@@ -149,6 +154,7 @@ def build() -> dict[str, str]:
                 os.replace(tmp, todo[name])
         if failed:
             raise RuntimeError("\n".join(failed))
+        note_build(time.perf_counter() - t0)
     return paths
 
 

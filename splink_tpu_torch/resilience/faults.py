@@ -24,7 +24,15 @@ EM), ``segment`` (each checkpoint boundary of run_em_checkpointed),
 (each streamed update, after its checkpoint) and, on the durable write
 path, ``emit_segment`` (blocking_device.emit_pairs_sharded, after a spill
 segment's bytes are appended and fsynced and before its manifest commit —
-the widest window a kill can tear; coords rule, shard, seq). ``iter`` /
+the widest window a kill can tear; coords rule, shard, seq) and
+``build_chunk`` (the out-of-core serving-index build, serve/index.py,
+between a packed chunk's bytes and its watermark commit; coord chunk).
+The serving sites: ``serve_worker`` (the service's worker loop, outside
+a batch: a raise there kills the worker thread, which the watchdog
+restarts; coord batch), ``serve_batch`` (each batch dispatch; coord
+batch), ``swap_load`` and ``swap_validate`` (index hot-swap; coord
+generation). Each event is published as a ``fault`` event on the ambient
+channel of ``obs.events`` before it acts. ``iter`` /
 ``batch`` constrain when an event matches (omitted = any); ``times``
 bounds how often it fires (default 1), so a retried pass sees the fault
 once and then succeeds. The kill kind uses SIGKILL (no atexit, no finally
@@ -46,7 +54,10 @@ _KINDS = ("transient", "oom", "kill", "slow")
 
 DEFAULT_SLOW_DELAY_MS = 250
 
-SITES = ("resident_em", "segment", "batch_fetch", "em_iteration", "emit_segment")
+SITES = (
+    "resident_em", "segment", "batch_fetch", "em_iteration", "emit_segment",
+    "build_chunk", "serve_worker", "serve_batch", "swap_load", "swap_validate",
+)
 
 
 class InjectedFault(RuntimeError):
@@ -134,6 +145,11 @@ class FaultPlan:
             if ev.matches(site, coords):
                 ev.times -= 1
                 logger.warning("fault injection: %s at %s %s", ev.kind, site, coords)
+                # published before a raise or kill, which no later code
+                # could report
+                from ..obs.events import publish
+
+                publish("fault", site=site, kind=ev.kind, coords=dict(coords))
                 if ev.kind == "slow":
                     time.sleep(ev.delay_ms / 1000.0)
                     continue  # a stall completes; later events may still fire

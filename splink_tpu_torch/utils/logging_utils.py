@@ -1,6 +1,6 @@
 """Structured degradation records: the port's copy of splink_tpu's
-``warn_degraded`` (utils/logging_utils.py), without the telemetry publish
-(observability is not ported yet, ROADMAP.md)."""
+``warn_degraded`` (utils/logging_utils.py), publishing its ``degradation``
+event through the ambient channel of ``obs.events``."""
 
 from __future__ import annotations
 
@@ -28,6 +28,13 @@ def warn_degraded(from_mode: str, to_mode: str, reason: str, **info) -> None:
         "degrade", **{"from": from_mode, "to": to_mode, "reason": reason}, **info
     )
     logger.warning("%s", line)
+    from ..obs.events import publish
+
+    publish(
+        "degradation",
+        **{"from": from_mode, "to": to_mode, "reason": reason},
+        **info,
+    )
     warnings.warn(
         f"execution degraded from {from_mode} to {to_mode}: {reason}",
         DegradationWarning,

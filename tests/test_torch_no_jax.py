@@ -12,7 +12,10 @@ max_resident_pairs (max_resident_pairs 1024): the pattern regime through
 device pair generation, and a checkpointed estimate_parameters in the
 streamed regime (the custom comparison rules patterns out). Last, the
 device sort-join tier (``device_blocking: "on"``) and ``build_spill_dir``
-with the spill-fed streamed EM.
+with the spill-fed streamed EM. Then serving: ``export_index``, a saved and
+loaded artifact, a warmed QueryEngine, a LinkageService answering
+submitted records (the obs copies it builds included), and ``python -m
+splink_tpu_torch.serve`` (``--help``, ``build`` and ``query`` on the CPU).
 """
 
 import os
@@ -52,7 +55,11 @@ for name in names:
     importlib.import_module(name)
 for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "native",
              "pairgen", "parallel.streaming", "resilience.checkpoint", "resilience.faults",
-             "resilience.retry", "utils.logging_utils", "blocking_device", "spill"):
+             "resilience.retry", "utils.logging_utils", "blocking_device", "spill",
+             "serve", "serve.index", "serve.engine", "serve.service", "serve.bucketing",
+             "serve.admission", "serve.health", "serve.__main__", "analysis.lockwatch",
+             "obs.events", "obs.flight", "obs.reqtrace", "obs.slo", "obs.kernelwatch",
+             "obs.metrics"):
     assert f"splink_tpu_torch.{want}" in names, want
 
 
@@ -130,6 +137,40 @@ plinker = splink_tpu_torch.Splink(dict(settings, max_resident_pairs=1024, max_it
                                        build_spill_dir=spill), df=df, device="cpu")
 plinker.estimate_parameters()
 assert plinker._pairs.spill_store.completed and "em_streamed" in plinker.stage_seconds
+# serving: export, save, load, a warmed engine and the service
+import contextlib, io, runpy
+from splink_tpu_torch.serve import BucketPolicy, LinkageService, QueryEngine, load_index
+from splink_tpu_torch.serve.__main__ import main as serve_main
+
+d = tempfile.mkdtemp()
+linker.export_index(os.path.join(d, "idx"))
+engine = QueryEngine(load_index(os.path.join(d, "idx"), device="cpu"), top_k=8,
+                     policy=BucketPolicy((16,), (64, 512)))
+assert engine.warmup()["combinations"] == 2
+top_p, top_rows, top_valid, n_cand = engine.query_arrays(df.head(20))
+assert top_valid.any() and (n_cand > 0).any()
+with LinkageService(engine, deadline_ms=5.0) as svc:
+    res = [svc.query(r, timeout=60) for r in df.head(5).to_dict(orient="records")]
+assert not any(r.shed for r in res) and any(r.matches for r in res)
+assert svc.latency_summary()["served"] == 5
+# the CLI: build from a saved model, then query
+linker.save_model_as_json(os.path.join(d, "model.json"))
+df.to_csv(os.path.join(d, "ref.csv"), index=False)
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    assert serve_main(["build", "--model", os.path.join(d, "model.json"), "--data",
+                       os.path.join(d, "ref.csv"), "--out", os.path.join(d, "cli"),
+                       "--device", "cpu"]) == 0
+    assert serve_main(["query", "--index", os.path.join(d, "cli"), "--data",
+                       os.path.join(d, "ref.csv"), "--k", "3", "--device", "cpu"]) == 0
+lines = buf.getvalue().splitlines()
+assert '"built"' in lines[0] and len(lines) > 20, lines[:3]
+sys.argv = ["splink_tpu_torch.serve", "--help"]
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    try:
+        runpy.run_module("splink_tpu_torch.serve", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "build" in buf.getvalue() and "bench" in buf.getvalue()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok", len(names), len(out))
