@@ -64,7 +64,18 @@ probabilities equal the offline ones (the TF engine's equal
 ``tf_match_probability``), a CPU engine over the same artifact agrees
 within 1e-5, the indexes built with the device CSR, the host CSR and
 out of core have one fingerprint, and no kernel library is built after
-warmup. Every phase prints one JSON line; any failed check raises. The last lines are the
+warmup. The ``approx`` phase drives the approximate tier (minhash-LSH
+blocking) at bench.py's size: 50,000 base rows with near-unique names and
+a twin of each whose first name and surname both carry a '#', blocked on
+the names with ``approx_blocking`` into the main path's comparison
+columns; it times the tier's stages, measures the recall of the twins at
+the budget, unbudgeted and by the exact tier, and raises unless the
+emitted pairs are the best-first top of every survivor, the card equals
+the CPU on 5,000 base rows (unweighted and TF-weighted; a weighted lane
+may part only at a near tie), and an index over those base rows serves
+every garbled twin through its fallback, tagged ``approx``, with
+probabilities ``==`` the offline ones, bit-identically after a save and a
+load, with no kernel library built after warmup. Every phase prints one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
 
@@ -1930,6 +1941,298 @@ def serve_phase(torch, strings_cuda, native, tf, linker, tf_linker, df, out_dir)
     return fields, captured
 
 
+# ----------------------------------------------------------------------
+# The approximate tier: minhash-LSH blocking offline and served
+# ----------------------------------------------------------------------
+
+APPROX_BASE = 50_000  # bench.py's n_base: 100,000 rows with the twins
+APPROX_PARITY_BASE = 5_000  # the corpus held on the card against the CPU
+APPROX_SERVE_POLICY = ((1024,), (256, 2048, 16384))
+APPROX_TOP_K = 8
+APPROX_RECALL_MIN = 0.8  # planted twins found at the budget (the reference: 0.89)
+
+
+def approx_settings(n_base: int, **over):
+    """The main path's comparison columns, blocked on the names alone, with
+    the approximate tier at bench.py's settings: threshold 0.2 and a budget
+    of 8 pairs per base record."""
+    s = json.loads(json.dumps(SETTINGS))
+    s.update(blocking_rules=["l.first_name = r.first_name", "l.surname = r.surname"],
+             approx_blocking=True, approx_threshold=0.2, approx_pair_budget=8 * n_base)
+    s.update(over)
+    return s
+
+
+def make_typo_corpus(n_base: int, seed: int):
+    """bench.py's approximate-blocking corpus (bench_approx) over
+    make_people's rows: the names suffixed by ``i % 1000`` and ``i % 997``
+    (near-unique keys), then one twin of each base row whose first_name AND
+    surname carry a '#' at a seeded position, so the exact rules cannot
+    pair a twin with its source. The true matches are (k, k + n_base)."""
+    import pandas as pd
+
+    base, _ = make_people(n_base, seed)
+    k = np.arange(n_base)
+    # str() of each value, as bench.py's astype(str) gave (a null is "None")
+    base["first_name"] = [f"{v}{i}" for v, i in zip(base["first_name"], k % 1000)]
+    base["surname"] = [f"{v}{i}" for v, i in zip(base["surname"], k % 997)]
+    twins = base.copy()
+    twins["unique_id"] = twins["unique_id"] + n_base
+    crng = np.random.default_rng(seed + 1)
+
+    def corrupt(v):
+        i = int(crng.integers(0, len(v)))
+        return v[:i] + "#" + v[i + 1:]
+
+    twins["first_name"] = [corrupt(v) for v in twins["first_name"]]
+    twins["surname"] = [corrupt(v) for v in twins["surname"]]
+    return pd.concat([base, twins], ignore_index=True)
+
+
+def twin_recall(i, j, n_base: int) -> float:
+    """Share of the planted twins (k, k + n_base) among the pairs."""
+    i, j = np.asarray(i, np.int64), np.asarray(j, np.int64)
+    hit = (j - i == n_base) & (i < n_base)
+    return float(len(np.unique(i[hit])) / n_base)
+
+
+def weighted_parted_lanes(torch, minhash, lsh, settings, table):
+    """The TF-weighted signatures on the card against the CPU, lane by lane
+    (one row per band, so a key is a bijection of its lane). Raises unless
+    every lane that parts was decided by two race values within 2 float32
+    ulp; returns the parted lanes."""
+    cfg = lsh.ApproxConfig.from_settings(settings, table)
+    cols = lsh.column_arrays(table, cfg.cols)
+    idf = minhash.idf_weights(*minhash.gram_df_table(cols, cfg.q, device="cpu"))
+    lanes = cfg.bands * cfg.rows_per_band
+    keys = {dev: minhash.band_key_arrays(cols, cfg.q, lanes, 1, idf=idf, device=dev)[0]
+            for dev in ("cuda", "cpu")}
+    parted = np.argwhere(keys["cuda"] != keys["cpu"])
+    a, b = minhash.hash_params(lanes)
+    salts = minhash.column_salts(len(cols))
+    out = []
+    for row, lane in parted[:64]:
+        race = []
+        for c, (bytes_, lengths) in enumerate(cols):
+            h, valid = minhash._gram_hashes(minhash._upload_chars(bytes_[row:row + 1], "cpu"),
+                                            torch.from_numpy(lengths[row:row + 1]), cfg.q,
+                                            int(salts[c]))
+            hk = (minhash._mul32(h, int(a[lane])) + int(b[lane])) & 0xFFFFFFFF
+            hk = hk ^ (hk >> 13)
+            hk = minhash._mul32(hk, 0x85EBCA6B)
+            hk = hk ^ (hk >> 16)
+            e = (minhash._neg_log_f32(hk) / torch.from_numpy(idf)[h >> 16])[valid]
+            race += e.tolist()
+        first, second = sorted(race)[:2]
+        gap = (second - first) / float(np.spacing(np.float32(second)))
+        if gap > 2:
+            raise AssertionError(f"weighted lane ({row}, {lane}) parts card vs CPU with its "
+                                 f"race decided by {gap} ulp")
+        out.append({"row": int(row), "lane": int(lane), "race_gap_ulp": gap})
+    if len(parted) > 64:
+        raise AssertionError(f"{len(parted)} weighted lanes part card vs CPU")
+    return out
+
+
+def approx_phase(torch, splink_tpu_torch, strings_cuda, native, tf, out_dir):
+    """The approximate tier at bench.py's size; returns (fields, launches of
+    its main path)."""
+    import shutil
+
+    from splink_tpu_torch import blocking
+    from splink_tpu_torch.approx import lsh, minhash
+    from splink_tpu_torch.blocking_device import iter_device_pairs
+    from splink_tpu_torch.obs.metrics import compile_requests
+    from splink_tpu_torch.serve import BucketPolicy, QueryEngine, load_index
+
+    fields = {"smi": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()}
+    t0 = time.perf_counter()
+    df = make_typo_corpus(APPROX_BASE, SEED + 7)
+    fields["data_gen_s"] = time.perf_counter() - t0
+    settings = approx_settings(APPROX_BASE)
+    budget = settings["approx_pair_budget"]
+
+    # -- the main path: training and scoring through the public entry point
+    zero_counts(strings_cuda, native, tf)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    linker = splink_tpu_torch.Splink(json.loads(json.dumps(settings)), df=df)
+    df_e = linker.get_scored_comparisons()
+    e2e_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(strings_cuda.launches)
+    variants = dict(strings_cuda.variant_launches)
+    check_path_counts("the approximate path", strings_cuda, native, tier="host")
+    run = dict(lsh.last_run)
+    if run.get("device") != "cuda:0" and run.get("device") != "cuda":
+        raise AssertionError(f"the approximate tier ran on {run.get('device')}")
+    pairs = linker._pairs
+    emitted = run["emitted"]
+    n_exact = pairs.n_pairs - emitted
+    if not 0 < emitted <= budget:
+        raise AssertionError(f"{emitted} approximate pairs emitted under a budget of {budget}")
+    p = check_unit_interval(df_e, "match_probability", np.float32)
+    if len(df_e) != pairs.n_pairs:
+        raise AssertionError("the scored frame is not the pair set")
+    for col in SETTINGS["comparison_columns"]:
+        g = df_e[f"gamma_{col['col_name']}"].to_numpy()
+        if g.min() < -1 or g.max() >= col["num_levels"]:
+            raise AssertionError(f"approximate path gamma_{col['col_name']} outside its levels")
+    uid_l, uid_r = df_e["unique_id_l"].to_numpy(), df_e["unique_id_r"].to_numpy()
+    twin = (uid_r - uid_l == APPROX_BASE) & (uid_l < APPROX_BASE)
+    fields["main_path"] = {
+        "rows": len(df), "exact_pairs": int(n_exact), "approx_pairs": int(emitted),
+        "budget": budget, "wall_s": e2e_s, "stage_s": linker.stage_seconds,
+        "em_updates": int(linker._last_em_result.n_updates),
+        "launches": launches, "variant_launches": variants,
+        "native_calls": dict(native.calls), "peak_device_mem_gb": peak_gb,
+        "planted_median_p": float(np.median(p[twin])) if twin.any() else None,
+        "other_p99": float(np.quantile(p[~twin], 0.99)),
+        "tier_seconds": run["seconds"],
+        **{k: run[k] for k in ("candidates", "exact_overlap_removed", "survivors",
+                               "emitted", "oversize_buckets_dropped", "budget_fill")},
+    }
+    table = linker._table
+
+    # -- the stages alone: the DF table, the plan, one verification chunk,
+    # -- and every survivor unbudgeted (recall, and the budget's prefix) ---
+    columns = lsh.column_arrays(table, ("first_name", "surname"))
+    t0 = time.perf_counter()
+    minhash.gram_df_table(columns, settings.get("approx_q") or 2, device="cuda")
+    torch.cuda.synchronize()
+    df_table_s = time.perf_counter() - t0
+    plan = lsh.build_approx_plan(linker.settings, table)
+    unb = dict(linker.settings, approx_pair_budget=1 << 40)
+    t0 = time.perf_counter()
+    ui, uj, uc, us, ustats = lsh.generate_approx_candidates(unb, table, plan=plan)
+    unbudgeted_s = time.perf_counter() - t0
+    order = lsh.rank_order(*(torch.from_numpy(a).cuda() for a in (ui, uj, uc, us)))
+    top = order[:budget].cpu().numpy()
+    if not (np.array_equal(pairs.idx_l[n_exact:], ui[top])
+            and np.array_equal(pairs.idx_r[n_exact:], uj[top])):
+        raise AssertionError("the emitted approximate pairs are not the best-first top of "
+                             "every survivor")
+    if ustats["survivors"] != run["survivors"] or ustats["candidates"] != run["candidates"]:
+        raise AssertionError(f"unbudgeted run counts {ustats} differ from the budgeted run's")
+    _, ci, cj = next(iter_device_pairs(plan.device_plan, lsh.VERIFY_CHUNK_CUDA))
+    it = torch.from_numpy(ci.astype(np.int64)).cuda()
+    jt = torch.from_numpy(cj.astype(np.int64)).cuda()
+    aux = [(minhash._upload_chars(b, "cuda"), minhash._upload(ln, "cuda"),
+            minhash._upload(m.view(np.int32), "cuda"), minhash._upload(c, "cuda"))
+           for b, ln, m, c in lsh._verify_aux(table, plan.config)]
+    bc = minhash._upload(plan.band_codes, "cuda")
+    verify_ms = cuda_ms(torch, lambda: lsh.verify_pairs(it, jt, bc, aux, plan.config.q, True))
+    fields["stages"] = {
+        "df_table_s": df_table_s, "plan_s": plan.seconds,
+        "unbudgeted_candidates_s": unbudgeted_s, "unbudgeted_seconds": ustats["seconds"],
+        "verify_chunk_pairs": int(it.shape[0]), "verify_chunk_device_ms": verify_ms,
+        "verify_calls": ustats["seconds"]["verify_calls"],
+    }
+    head = (pairs.idx_l[:n_exact], pairs.idx_r[:n_exact])
+    fields["recall"] = {
+        "at_budget": twin_recall(ui[top], uj[top], APPROX_BASE),
+        "unbudgeted": twin_recall(ui, uj, APPROX_BASE),
+        "exact_tier": twin_recall(*head, APPROX_BASE),
+    }
+    if fields["recall"]["at_budget"] < APPROX_RECALL_MIN:
+        raise AssertionError(f"recall at the budget {fields['recall']}")
+    del ui, uj, uc, us, order, it, jt, aux, bc, plan, linker, df_e
+
+    # -- parity: the 5,000-base corpus on the card and on the CPU ----------
+    small = make_typo_corpus(APPROX_PARITY_BASE, SEED + 8)
+    parity = {}
+    for name, over in (("unweighted", {}), ("weighted", {"approx_tf_weighting": True})):
+        s = approx_settings(APPROX_PARITY_BASE, **over)
+        parted = []
+        if over:
+            table = splink_tpu_torch.Splink(json.loads(json.dumps(s)), df=small,
+                                            device="cpu")._ensure_encoded()
+            parted = weighted_parted_lanes(torch, minhash, lsh, s, table)
+        if parted:
+            parity[name] = {"parted_lanes": parted, "frames_compared": False}
+            continue
+        gpu, _, cpu, dp, pvariants = cuda_vs_cpu(splink_tpu_torch, strings_cuda, s, small)
+        parity[name] = {"pairs": gpu._pairs.n_pairs, "max_abs_dp": dp,
+                        "approx_emitted": lsh.last_run["emitted"], "parted_lanes": [],
+                        "variant_launches": pvariants, "frames_compared": True}
+    fields["parity"] = parity
+
+    # -- serving: an index over the base rows answers the garbled twins ----
+    base = small.iloc[:APPROX_PARITY_BASE].reset_index(drop=True)
+    twins = small.iloc[APPROX_PARITY_BASE:].reset_index(drop=True)
+    s = approx_settings(APPROX_PARITY_BASE)
+    trainer = splink_tpu_torch.Splink(json.loads(json.dumps(s)), df=base)
+    trainer.estimate_parameters()
+    model = os.path.join(out_dir, "approx_model.json")
+    trainer.save_model_as_json(model, overwrite=True)
+    ref = splink_tpu_torch.load_from_json(model, df=base)
+    t0 = time.perf_counter()
+    index = ref.export_index()
+    export_s = time.perf_counter() - t0
+    policy = BucketPolicy(*APPROX_SERVE_POLICY)
+    engine = QueryEngine(index, top_k=APPROX_TOP_K, policy=policy)
+    warm = engine.warmup()
+    builds = compile_requests()
+    approx_out = []
+    t0 = time.perf_counter()
+    served = engine.query_arrays(twins, approx_out=approx_out)
+    serve_s = time.perf_counter() - t0
+    top_p, top_rows, top_valid, n_cand = served
+    tagged = approx_out[0]
+    if not tagged.all():
+        raise AssertionError(f"{int((~tagged).sum())} garbled queries were not served "
+                             "through the fallback")
+    found = (index.unique_id[top_rows] == np.arange(APPROX_PARITY_BASE)[:, None]) & top_valid
+    serve_recall = float(found.any(axis=1).mean())
+    if serve_recall < APPROX_RECALL_MIN:
+        raise AssertionError(f"the fallback found {serve_recall} of the twins' sources")
+    res = engine.query(twins.head(64))
+    if not res["approx"].all() or engine.query(base.head(64))["approx"].any():
+        raise AssertionError("the query frame's approx column is wrong")
+    combined = splink_tpu_torch.load_from_json(model, df=small)
+    combined.settings["approx_pair_budget"] = 1 << 40
+    off = combined.manually_apply_fellegi_sunter_weights()
+    offline = dict(zip(zip(off["unique_id_l"].to_numpy().tolist(),
+                           off["unique_id_r"].to_numpy().tolist()),
+                       off["match_probability"].to_numpy()))
+    checked = 0
+    for q in range(APPROX_PARITY_BASE):
+        for r in np.flatnonzero(top_valid[q]):
+            key = (int(index.unique_id[top_rows[q, r]]), q + APPROX_PARITY_BASE)
+            if key in offline:
+                if offline[key] != top_p[q, r]:
+                    raise AssertionError(f"served {top_p[q, r]!r} for {key}, offline "
+                                         f"{offline[key]!r}")
+                checked += 1
+    if checked < 0.9 * APPROX_PARITY_BASE:
+        raise AssertionError(f"only {checked} served pairs were offline pairs")
+    idx_dir = os.path.join(out_dir, "approx_index")
+    shutil.rmtree(idx_dir, ignore_errors=True)
+    index.save(idx_dir)
+    again = QueryEngine(load_index(idx_dir), top_k=APPROX_TOP_K, policy=policy)
+    again.warmup()
+    if again.index.content_fingerprint() != index.content_fingerprint():
+        raise AssertionError("the loaded approximate index's fingerprint differs")
+    reloaded = again.query_arrays(twins)
+    if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(served, reloaded)):
+        raise AssertionError("the saved-and-loaded index answers differently")
+    builds_after = compile_requests() - builds
+    if builds_after:
+        raise AssertionError(f"{builds_after} kernel-library builds after warmup")
+    shutil.rmtree(idx_dir, ignore_errors=True)
+    fields["serve"] = {
+        "reference_rows": index.n_rows, "queries": len(twins), "bands": index.approx.bands,
+        "export_s": export_s, "warmup": warm, "wall_s": serve_s,
+        "queries_per_s": len(twins) / serve_s, "approx_tagged": int(tagged.sum()),
+        "source_in_top_k": serve_recall, "median_candidates": float(np.median(n_cand)),
+        "served_equals_offline_pairs": checked, "reload_bit_identical": True,
+        "builds_after_warmup": builds_after,
+    }
+    return fields, launches
+
+
 def main() -> int:
     import torch
 
@@ -2396,6 +2699,16 @@ def main() -> int:
                      f"({'first_name' if kernel == 'jaro_winkler' else 'city'})"))
     del serve_captured
     emit("serve", phase_s=time.perf_counter() - t0, **serve)
+
+    # -- the approximate tier at bench.py's size: minhash-LSH blocking into
+    # -- the main path's columns, parity with the CPU, the serving fallback
+    t0 = time.perf_counter()
+    approx, approx_launches = approx_phase(torch, splink_tpu_torch, strings_cuda, native, tf,
+                                           out_dir)
+    emit("approx", phase_s=time.perf_counter() - t0, **approx)
+    for r in rows:
+        if r["name"] in KERNELS:
+            r["approx_path_launches"] = approx_launches[r["name"]]
 
     # -- jobs past max_resident_pairs at full size: device pair generation,
     # -- the overlap PatternStream, the score stream ----------------------------

@@ -13,8 +13,9 @@ takes the device tier on any device, the CPU included; ``"auto"`` takes it
 on the card once the exact rules' pair bound reaches
 ``blocking_device.AUTO_MIN_PAIRS`` and keeps the host join on the CPU; a
 rule shape the device plan rejects falls back to the host join with a
-logged reason. ``tiers`` counts which tier served each call.
-``approx_blocking`` raises (ROADMAP.md, Queue 1 item 10).
+logged reason. ``tiers`` counts which tier served each exact pass.
+``approx_blocking`` appends the approximate tier (approx/) after the exact
+rules, on the same device.
 
 Pair-set semantics are preserved exactly:
   * equality-conjunction rules (``l.a = r.a AND l.b = r.b``) become hash
@@ -790,15 +791,21 @@ def estimate_pair_upper_bound(
         _rule_group_stats(link_type, table, rule, n_left)[1] for rule in rules
     )
     if include_approx and settings.get("approx_blocking"):
-        _approx_not_ported()
+        # the approximate tier appends at most its pair budget, only when
+        # it can run (no sketchable string column: it adds nothing) and
+        # never more than the job's total possible pair count;
+        # include_approx=False gives the exact rules' bound, which the
+        # device-blocking "auto" gate weighs
+        from .approx.lsh import DEFAULT_BUDGET, approx_columns
+
+        if approx_columns(settings, table):
+            budget = int(settings.get("approx_pair_budget") or DEFAULT_BUDGET)
+            if link_type == "link_only" and n_left is not None:
+                total = n_left * (n - n_left)
+            else:
+                total = n * (n - 1) // 2
+            bound += min(budget, total)
     return bound
-
-
-def _approx_not_ported():
-    raise NotImplementedError(
-        "approx_blocking needs the approximate LSH tier (ROADMAP.md, "
-        "Queue 1 item 10), which splink_tpu_torch does not port yet"
-    )
 
 
 def _rule_group_stats(
@@ -921,29 +928,39 @@ def block_using_rules(
     idx_dtype = _idx_dtype(table.n_rows)
     all_rows = np.arange(table.n_rows, dtype=idx_dtype)
 
-    if settings.get("approx_blocking"):
-        _approx_not_ported()
+    # the approximate tier (approx/: minhash-LSH band joins, q-gram
+    # verification, a pair budget) runs AFTER the exact rules when opted
+    # in: it drops every pair an exact rule produced and appends its
+    # best-first chunks to the same sink
+    approx_on = bool(settings.get("approx_blocking"))
     with _PairSink(settings.get("spill_dir"), idx_dtype) as sink:
         # the device sort-join tier first; it returns None for the host join
         # (a rule shape its plan rejects, or an "auto" job it does not take)
         mode = settings.get("device_blocking", "auto")
+        out = None
         if mode in ("auto", "on"):
             from .blocking_device import device_block_rules
 
             out = device_block_rules(settings, table, n_left, sink, pair_consumer, mode,
-                                     device=device)
-            if out is not None:
-                tiers["device"] += 1
-                return out
-        tiers["host"] += 1
-        return _block_rules_into(
-            sink, rules, settings, table, link_type, all_rows, n_left, pair_consumer
-        )
+                                     device=device, finish=not approx_on)
+        if out is not None:
+            tiers["device"] += 1
+        else:
+            tiers["host"] += 1
+            out = _block_rules_into(sink, rules, settings, table, link_type, all_rows,
+                                    n_left, pair_consumer, finish=not approx_on)
+        if not approx_on:
+            return out
+        from .approx import approx_block_into
+
+        approx_block_into(settings, table, n_left, sink, pair_consumer, device=device)
+        return sink.finish()
 
 
 def _block_rules_into(
-    sink, rules, settings, table, link_type, all_rows, n_left, pair_consumer=None
-) -> PairIndex:
+    sink, rules, settings, table, link_type, all_rows, n_left, pair_consumer=None,
+    finish: bool = True,
+) -> PairIndex | None:
     # Sequential-rule dedup by PREDICATE, the literal semantics of the
     # reference's ``AND NOT ifnull(previous_rule, false)``
     # (splink/blocking.py:59-68): a candidate of rule k is kept iff NO
@@ -1041,7 +1058,7 @@ def _block_rules_into(
         prior_rules.append((codes_l, codes_r, residual))
         logger.debug("blocking rule %r -> %d new pairs", rule, n_new)
 
-    return sink.finish()
+    return sink.finish() if finish else None
 
 
 def _rule_holds(

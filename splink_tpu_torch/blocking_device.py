@@ -529,13 +529,16 @@ def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int):
 
 
 def device_block_rules(settings: dict, table: EncodedTable, n_left: int | None, sink,
-                       pair_consumer=None, mode: str = "auto", device=None):
+                       pair_consumer=None, mode: str = "auto", device=None,
+                       finish: bool = True):
     """The device tier of :func:`blocking.block_using_rules`: build the
     plan, stream the chunked emission into the caller's sink, and return
     the finished PairIndex — or None for the host join: a rule shape the
     plan rejects (logged with its reason as a degradation), or an "auto"
-    job on the CPU or below ``AUTO_MIN_PAIRS``. An error raised while the
-    plan builds or the pairs emit propagates."""
+    job on the CPU or below ``AUTO_MIN_PAIRS``. ``finish=False`` leaves
+    the sink open (the approximate tier appends to it) and returns the
+    sink. An error raised while the plan builds or the pairs emit
+    propagates."""
     from .utils.logging_utils import warn_degraded
 
     if mode == "auto":
@@ -567,11 +570,11 @@ def device_block_rules(settings: dict, table: EncodedTable, n_left: int | None, 
     _sync(device)
     emit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out = sink.finish()
+    out = sink.finish() if finish else sink
     last_run.clear()
     last_run.update(plan_s=plan_s, emit_s=emit_s, finish_s=time.perf_counter() - t0,
-                    chunks=n_chunks, pairs=out.n_pairs, candidates=plan.n_candidates,
-                    rules=len(plan.rules), device=str(device))
+                    chunks=n_chunks, pairs=out.n_pairs if finish else None,
+                    candidates=plan.n_candidates, rules=len(plan.rules), device=str(device))
     return out
 
 

@@ -674,10 +674,10 @@ class _Downloads:
             self._queue.append((tag, tensor, None, None))
             return
         nbytes = tensor.numel() * tensor.element_size()
-        fits = [b for b in self._free if b.numel() >= nbytes]
-        if fits:
-            buf = fits[0]
-            self._free.remove(buf)
+        # by position: list.remove would compare tensors element-wise
+        fit = next((k for k, b in enumerate(self._free) if b.numel() >= nbytes), None)
+        if fit is not None:
+            buf = self._free.pop(fit)
         else:
             buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
         host = buf[:nbytes].view(tensor.dtype).view(tensor.shape)

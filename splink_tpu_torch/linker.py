@@ -31,7 +31,11 @@ regime on the same device. ``spill_dir`` streams the host pair index to
 memmaps. ``build_spill_dir`` writes the pairs through the device tier's
 sharded emission into a durable, resumable store (spill.py); past
 ``max_resident_pairs`` settings that cannot use patterns then train by
-streaming gamma batches read from the store.
+streaming gamma batches read from the store. ``approx_blocking`` adds the
+approximate tier (approx/) after the exact rules, on the linker's device;
+it needs materialised blocking, so it turns device pair generation off and
+refuses ``build_spill_dir`` (blocking in memory with a degradation
+warning), as the reference does.
 
 Device rule: with no ``device`` the linker runs on ``cuda`` and raises when
 no CUDA device exists; it never carries on quietly on the CPU. Pass
@@ -280,6 +284,21 @@ class Splink:
         if self._pairs is None:
             table = self._ensure_encoded()
             build_dir = self.settings.get("build_spill_dir") or None
+            if build_dir and self.settings.get("approx_blocking"):
+                # the spill emission writes EXACT-rule pairs only; where the
+                # approximate tier can run, taking it would drop every
+                # approximate pair, so the job blocks in memory instead
+                from .approx.lsh import approx_columns
+
+                if approx_columns(self.settings, table):
+                    from .utils.logging_utils import warn_degraded
+
+                    warn_degraded(
+                        "spill_blocking", "host_blocking",
+                        "approx_blocking needs materialised blocking (the "
+                        "spill emission has no approximate tier)",
+                    )
+                    build_dir = None
             if build_dir:
                 # The durable write path: sharded, manifest-committed,
                 # resumable emission into the caller-owned spill store.
@@ -437,9 +456,20 @@ class Splink:
         if mode == "off" or not self._pattern_capable():
             return None
         if self.settings.get("approx_blocking"):
-            from .blocking import _approx_not_ported
+            # the virtual pair index enumerates EXACT-rule pairs only; the
+            # approximate tier emits through materialised blocking, so the
+            # virtual path would drop every approximate pair. With no
+            # sketchable string column the tier adds nothing and the
+            # virtual path loses nothing.
+            from .approx.lsh import approx_columns
 
-            _approx_not_ported()
+            if approx_columns(self.settings, self._ensure_encoded()):
+                logger.info(
+                    "device pair generation disabled: approx_blocking "
+                    "needs materialised blocking (the virtual pair index "
+                    "has no approximate tier)"
+                )
+                return None
         from .pairgen import build_virtual_plan
 
         table = self._ensure_encoded()

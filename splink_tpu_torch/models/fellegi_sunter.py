@@ -45,6 +45,18 @@ def _safe_log(x):
     return torch.log(torch.clamp(x, min=torch.finfo(x.dtype).tiny))
 
 
+def flush_subnormal(x):
+    """``x`` with every value of magnitude below ``finfo(dtype).tiny`` set
+    to 0, in float32 and float64. The reference's XLA programs run with
+    flush-to-zero (on the CPU, and a TPU has no sub-normal numbers), so a
+    probability or M-step quotient that falls below the smallest normal
+    number is 0 there; PyTorch keeps the sub-normal. Applied where such a
+    result leaves a function, so the port returns the reference's 0 (and
+    the M-step's ``_safe_log`` takes the same branch)."""
+    tiny = torch.finfo(x.dtype).tiny
+    return torch.where(torch.abs(x) < tiny, torch.zeros((), dtype=x.dtype, device=x.device), x)
+
+
 def _select_levels(G, table):
     """(n, C) table[c, G[n, c]] as a masked sum over the level axis, like
     the reference (entries where G = -1 come out as 0)."""
@@ -86,8 +98,9 @@ def match_logit(G, params: FSParams):
 
 
 def match_probability(G, params: FSParams):
-    """E-step: P(match | gamma vector) = sigmoid(logit(lambda) + log BF)."""
-    return torch.sigmoid(match_logit(G, params))
+    """E-step: P(match | gamma vector) = sigmoid(logit(lambda) + log BF),
+    sub-normal results flushed to 0 as in the reference."""
+    return flush_subnormal(torch.sigmoid(match_logit(G, params)))
 
 
 def fold_logit(G, params: FSParams):
@@ -188,11 +201,13 @@ class full_precision_matmul:
 
 def update_params(stats: SufficientStats) -> FSParams:
     """M-step parameter update. Levels never observed get probability
-    exactly 0, reproducing the reference's zero-fill for unseen levels."""
+    exactly 0, reproducing the reference's zero-fill for unseen levels; a
+    quotient of two normal numbers that is sub-normal is 0, as in the
+    reference."""
     eps = torch.finfo(stats.m_num.dtype).tiny
-    new_m = stats.m_num / torch.clamp(stats.m_den, min=eps)[:, None]
-    new_u = stats.u_num / torch.clamp(stats.u_den, min=eps)[:, None]
-    new_lam = stats.sum_p / torch.clamp(stats.n_rows, min=eps)
+    new_m = flush_subnormal(stats.m_num / torch.clamp(stats.m_den, min=eps)[:, None])
+    new_u = flush_subnormal(stats.u_num / torch.clamp(stats.u_den, min=eps)[:, None])
+    new_lam = flush_subnormal(stats.sum_p / torch.clamp(stats.n_rows, min=eps))
     return FSParams(lam=new_lam, m=new_m, u=new_u)
 
 

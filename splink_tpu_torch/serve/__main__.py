@@ -42,6 +42,7 @@ def _cmd_build(args) -> int:
         "built": args.out,
         "n_rows": index.n_rows,
         "n_rules": len(index.rules),
+        "n_approx_bands": 0 if index.approx is None else index.approx.bands,
         "n_lanes": index.n_lanes,
         "dtype": index.dtype,
     }))

@@ -11,6 +11,7 @@ under the reference's name, so it can be timed and checked alone:
                      upload uninitialised buffers and stale bytes never
                      reach a kernel or a score.
   candidate_gather   device hash-bucket lookup: each query's per-rule
+                     (and, with the approximate tier, per-LSH-band)
                      bucket id dereferences the index's CSR
                      (starts/sizes/rows_sorted) into a padded (Q, C)
                      candidate matrix; positions are clamped into the
@@ -90,7 +91,10 @@ def candidate_gather(qbuckets, starts, sizes, rows, row_bucket, capacity: int):
     offset_r the running sum of the earlier rules' bucket sizes: the
     emission order of offline blocking. A candidate whose row lies in an
     EARLIER rule's bucket for this query is masked invalid. ``qbuckets`` is
-    (n_rules, Q) int32; the CSR arrays are per-rule int64 tensors."""
+    (n_rules, Q) int32; the CSR arrays are per-rule int64 tensors. The
+    approximate tier's LSH bands follow the rules as more "rules" with the
+    same dedup: a band's candidate an earlier band (or rule) produced is
+    masked."""
     q_n = qbuckets.shape[1]
     dev = qbuckets.device
     slot = torch.arange(capacity, dtype=torch.int64, device=dev)[None, :]
@@ -181,7 +185,12 @@ def score_topk(layout, comparison_columns, k: int, packed_q, packed_ref, cand,
     ``fold_logit`` + the TF fold), then the top-k. Returns (top_p,
     top_rows, top_valid)."""
     from ..gammas import PairContext, _spec_gamma
-    from ..models.fellegi_sunter import _safe_log, fold_logit, match_probability
+    from ..models.fellegi_sunter import (
+        _safe_log,
+        flush_subnormal,
+        fold_logit,
+        match_probability,
+    )
 
     rows_l, rows_r, rflat = _pair_rows(packed_q, packed_ref, cand)
     ctx = PairContext(layout, rows_l, rows_r)
@@ -191,7 +200,7 @@ def score_topk(layout, comparison_columns, k: int, packed_q, packed_ref, cand,
     else:
         z = _tf_logit(tf_spec, fold_logit(G, params), _safe_log(params.u),
                       tf_q, tf_tid, tf_log, cand.shape[1], rflat)
-        p = torch.sigmoid(z)
+        p = flush_subnormal(torch.sigmoid(z))
     return _finish_topk(p, cand, valid, k)
 
 
@@ -205,7 +214,7 @@ def score_fused(layout, comparison_columns, k: int, packed_q, packed_ref, cand,
     left-to-right fold of ``fold_logit``. Returns (top_p, top_rows,
     top_valid), equal bit for bit to :func:`score_topk`."""
     from ..gammas import PairContext, _spec_gamma
-    from ..models.fellegi_sunter import _prior_logit, _safe_log
+    from ..models.fellegi_sunter import _prior_logit, _safe_log, flush_subnormal
 
     rows_l, rows_r, rflat = _pair_rows(packed_q, packed_ref, cand)
     ctx = PairContext(layout, rows_l, rows_r)
@@ -229,7 +238,7 @@ def score_fused(layout, comparison_columns, k: int, packed_q, packed_ref, cand,
     z = _prior_logit(params.lam) + log_bf
     if tf_spec:
         z = _tf_logit(tf_spec, z, log_u, tf_q, tf_tid, tf_log, cand.shape[1], rflat)
-    return _finish_topk(torch.sigmoid(z), cand, valid, k)
+    return _finish_topk(flush_subnormal(torch.sigmoid(z)), cand, valid, k)
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +374,17 @@ class QueryEngine:
         with self._swap_lock:
             return self.index.encode_queries(df)
 
-    def query_arrays(self, df, *, degraded: bool = False, profile=None):
+    def query_arrays(self, df, *, degraded: bool = False, profile=None,
+                     approx_out: list | None = None):
         """Score a query DataFrame; returns ``(top_p, top_rows, top_valid,
         n_candidates)`` numpy arrays of shape (n, k) / (n,). ``top_rows``
         are reference ROW indices; map through ``index.unique_id`` for ids
         (``query`` does).
+
+        ``approx_out``, when a list, receives one (n,) bool array marking
+        the queries served through the approximate tier's fallback (their
+        exact keys hit no bucket; their candidates come from LSH band
+        buckets). How a pair is scored does not depend on it.
 
         ``degraded=True`` runs the brown-out tier: top-k ``brownout_top_k``
         over candidates truncated to ``brownout_capacity``.
@@ -385,6 +400,9 @@ class QueryEngine:
                     "brown-out tier is disabled (serve_brownout_top_k=0)"
                 )
             batch = self.encode(df)
+            if approx_out is not None:
+                approx_out.append(batch.approx_used if batch.approx_used is not None
+                                  else np.zeros(batch.n, bool))
             out_p = np.full((batch.n, k), -1.0, self.index.float_dtype)
             out_rows = np.zeros((batch.n, k), np.int32)
             out_valid = np.zeros((batch.n, k), bool)
@@ -434,7 +452,7 @@ class QueryEngine:
         # uninitialised padding: encode_query zeroes it on the device
         packed_pad = np.empty((q_pad, index.n_lanes), np.uint32)
         packed_pad[:n] = batch.packed[start:stop]
-        qb_pad = np.empty((len(index.rules), q_pad), np.int32)
+        qb_pad = np.empty((len(index.gather_units), q_pad), np.int32)
         qb_pad[:, :n] = qb
         tf_q = ()
         if self.tf_spec:
@@ -463,27 +481,33 @@ class QueryEngine:
     def query(self, df):
         """Score a query DataFrame; returns a tidy DataFrame with one row
         per (query, match): query id, matched reference id, rank, match
-        probability and the query's candidate count."""
+        probability, the query's candidate count and, when the index
+        carries the approximate tier, an ``approx`` flag marking matches
+        found through its fallback."""
         import pandas as pd
 
+        approx_out: list = []
         # one lock span across scoring AND the uid mapping: a hot-swap
         # committing between them would map rows scored on the old index
         # through the new index's unique_id column
         with self._swap_lock:
-            top_p, top_rows, top_valid, n_cand = self.query_arrays(df)
+            top_p, top_rows, top_valid, n_cand = self.query_arrays(df, approx_out=approx_out)
             ref_uid = self.index.unique_id
             q_idx, rank = np.nonzero(top_valid)
             uid_col = self.index.settings["unique_id_column_name"]
             query_uid = (
                 df[uid_col].to_numpy() if uid_col in df.columns else np.arange(len(df))
             )
-            return pd.DataFrame({
+            out = {
                 f"{uid_col}_q": query_uid[q_idx],
                 f"{uid_col}_m": ref_uid[top_rows[q_idx, rank]],
                 "rank": rank.astype(np.int64),
                 "match_probability": top_p[q_idx, rank],
                 "n_candidates": n_cand[q_idx],
-            })
+            }
+            if self.index.approx is not None:
+                out["approx"] = approx_out[0][q_idx]
+            return pd.DataFrame(out)
 
     # -- warmup ---------------------------------------------------------
 
@@ -521,7 +545,7 @@ class QueryEngine:
             index = self.index
             k = self.brownout_top_k if degraded else self.top_k
             packed = self._upload(np.zeros((q_pad, index.n_lanes), np.int32))
-            qb = self._upload(np.full((len(index.rules), q_pad), -1, np.int32))
+            qb = self._upload(np.full((len(index.gather_units), q_pad), -1, np.int32))
             tf_q = tuple(
                 self._upload(np.full(q_pad, -1, np.int32)) for _ in self.tf_spec
             )

@@ -12,6 +12,12 @@ service loads once and serves from for its whole lifetime. It holds
     form (``rows_sorted``/``starts``/``sizes``), a per-row bucket id for
     sequential-rule dedup on the device, and the host-side key -> bucket
     dictionary a query record resolves through;
+  * with ``approx_blocking``, the LSH fallback: one bucket CSR per
+    minhash band over the approximate columns (the same band keys the
+    offline tier joins on), a band key -> bucket dictionary per band, and
+    the IDF table of the TF-weighted tier. A query whose exact keys hit no
+    bucket resolves its band keys instead and is served from the union of
+    its band buckets, tagged ``approx=True``;
   * the trained Fellegi-Sunter parameters;
   * the term-frequency tables (per-token counts) of every TF-flagged
     column with the per-row reference token ids of the fold columns, and
@@ -35,10 +41,9 @@ derived-key expressions included). Residual predicates and cross-column
 equalities have no bucket structure to index; :func:`build_index` rejects
 them rather than serving wrong candidates.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the approximate LSH serve bands (``approx_blocking``, Queue 1 item
-10) and the training-reference quality profile (``quality_profile``, item
-11), at build and when loading an artifact that carries them.
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+the training-reference quality profile (``quality_profile``, Queue 1 item
+11), at build and when loading an artifact that carries one.
 """
 
 from __future__ import annotations
@@ -93,7 +98,6 @@ _HASH_CHUNK_ROWS = 1 << 18
 # canonical-key-token separator (see _canon_token)
 _KEY_SEP = "\x1f"
 
-_APPROX_ITEM = "the approximate LSH serve bands, Queue 1 item 10"
 _PROFILE_ITEM = "the training-reference quality profile, Queue 1 item 11"
 
 
@@ -202,6 +206,20 @@ def _encode_value_chars(
             bytes_[row, j] = cp
 
 
+def _encode_query_bytes(sc: EncodedStringColumn, width: int, kind: str, rows: np.ndarray):
+    """(bytes, lengths) for the given ``rows`` of a query string column,
+    pinned to the REFERENCE width and ascii/wide kind (the byte semantics
+    of ``_encode_value_chars``), without the vocabulary work the minhash
+    signatures do not need. Null rows keep length 0 (no grams)."""
+    n = len(rows)
+    bytes_ = np.zeros((n, width), np.uint8 if kind == "ascii" else np.uint32)
+    lengths = np.zeros(n, np.int32)
+    for k, i in enumerate(rows):
+        if not sc.null_mask[i]:
+            _encode_value_chars(bytes_, lengths, k, str(sc.values[i]), width, kind)
+    return bytes_, lengths
+
+
 def _rule_key_cols(rule: str) -> list[str]:
     """The symmetric equality key columns of one blocking rule, or raise
     for shapes serving cannot index (residuals, cross-column keys, keyless
@@ -249,12 +267,51 @@ class ServeRule:
 
 
 @dataclass
+class ApproxBand:
+    """One LSH band's frozen bucket index: the CSR quartet of a
+    :class:`ServeRule`, so the engine gathers a band's candidates exactly
+    like a blocking rule's (the cross-band dedup IS the sequential-rule
+    dedup mask)."""
+
+    rows_sorted: np.ndarray  # (n_valid,) int32
+    starts: np.ndarray  # (n_buckets,) int32
+    sizes: np.ndarray  # (n_buckets,) int32
+    row_bucket: np.ndarray  # (n_rows,) int32; -1 = no signature
+    bucket_of: dict = field(default_factory=dict)  # int band key -> bucket
+
+
+@dataclass
+class ApproxServe:
+    """The serve fallback: minhash-LSH band buckets over the approximate
+    columns. A query whose EXACT keys hit no bucket resolves its band keys
+    through ``bucket_of`` and is scored against the union of its band
+    buckets; its results are tagged ``approx=True``."""
+
+    cols: list[str]
+    col_meta: dict  # name -> {"width": int, "kind": "ascii"|"wide"}
+    q: int
+    bands: int
+    rows_per_band: int
+    band_index: list[ApproxBand] = field(default_factory=list)
+    # the TF-weighting IDF table (minhash.idf_weights): query-side
+    # signatures draw from the weights the build drew from, so it rides in
+    # the artifact; None = the unweighted tier
+    idf: np.ndarray | None = None
+
+
+@dataclass
 class QueryBatch:
-    """Host-side encoded query batch, ready for the engine."""
+    """Host-side encoded query batch, ready for the engine.
+
+    ``qbuckets`` covers the engine's whole gather menu: one row per exact
+    blocking rule, then one row per LSH band (all -1 where the query
+    resolved exactly). ``approx_used`` marks the queries served through the
+    fallback; None when the index has no approximate tier."""
 
     packed: np.ndarray  # (n, n_lanes) uint32, same layout as the index
-    qbuckets: np.ndarray  # (n_rules, n) int32; -1 = no candidates
+    qbuckets: np.ndarray  # (n_gather, n) int32; -1 = no candidates
     n: int
+    approx_used: np.ndarray | None = None  # (n,) bool
     # (n_tf_fold, n) int32 query token ids for the TF fold columns (the
     # reference-vocabulary ids _pin_string_column resolved: an unseen query
     # value takes a fresh id past the vocabulary, which never agrees with a
@@ -283,6 +340,7 @@ class LinkageIndex:
         tf_tables: dict,
         state_hash: str,
         tf_tids: dict | None = None,
+        approx: ApproxServe | None = None,
         device=None,
     ):
         self.settings = settings
@@ -303,6 +361,7 @@ class LinkageIndex:
         # before the fold existed, which serve unadjusted (engine warns)
         self.tf_tids = dict(tf_tids or {})
         self.state_hash = state_hash
+        self.approx = approx  # the LSH fallback (None = exact only)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # named explicitly: a serving thread must not depend on its
@@ -328,6 +387,15 @@ class LinkageIndex:
     @property
     def float_dtype(self):
         return np.float64 if self.dtype == "float64" else np.float32
+
+    @property
+    def gather_units(self) -> list:
+        """The engine's candidate-gather menu: the exact blocking rules, then
+        the LSH bands (each carries the same CSR quartet)."""
+        units = list(self.rules)
+        if self.approx is not None:
+            units.extend(self.approx.band_index)
+        return units
 
     def tf_fold_columns(self) -> list:
         """The TF u-probability fold menu this index can serve:
@@ -379,6 +447,17 @@ class LinkageIndex:
             for r in self.rules:
                 for a in (r.rows_sorted, r.starts, r.sizes, r.row_bucket):
                     _hash_update_array(h, a)
+            if self.approx is not None:
+                # the approximate config, IDF table and band CSRs; an
+                # exact-only index hashes as before
+                ap = self.approx
+                h.update(f"approx:{ap.q}:{ap.bands}:{ap.rows_per_band}:"
+                         f"{','.join(ap.cols)}".encode())
+                if ap.idf is not None:
+                    h.update(np.ascontiguousarray(ap.idf).tobytes())
+                for band in ap.band_index:
+                    for a in (band.rows_sorted, band.starts, band.sizes, band.row_bucket):
+                        _hash_update_array(h, a)
             if self.tf_tids:
                 for name in sorted(self.tf_tids):
                     h.update(f"tf:{name}".encode())
@@ -392,9 +471,9 @@ class LinkageIndex:
 
     def candidate_counts(self, qbuckets: np.ndarray) -> np.ndarray:
         """(n,) int64 upper-bound candidate count per query (duplicates
-        across rules included: the capacity the engine pads to)."""
+        across rules and bands included: the capacity the engine pads to)."""
         total = np.zeros(qbuckets.shape[1], np.int64)
-        for r, unit in enumerate(self.rules):
+        for r, unit in enumerate(self.gather_units):
             qb = qbuckets[r]
             has = qb >= 0
             total[has] += unit.sizes[qb[has]]
@@ -407,14 +486,16 @@ class LinkageIndex:
     def device_state(self):
         """Memoised tensors on the index's device: the packed reference
         matrix (int32 carrying the uint32 lanes' bits, as GammaProgram
-        holds it), the per-rule bucket CSR arrays (int64, torch's index
-        type) and the trained FSParams in the index's float type. Uploaded
-        once, shared by every query batch for the index's lifetime."""
+        holds it), the bucket CSR arrays of every rule and LSH band (int64,
+        torch's index type) and the trained FSParams in the index's float
+        type. Uploaded once, shared by every query batch for the index's
+        lifetime."""
         if self._device_state is None:
             from ..models.fellegi_sunter import FSParams
 
             dev = self.device
             dt = self.float_dtype
+            units = self.gather_units
 
             def up(a):
                 return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
@@ -423,10 +504,10 @@ class LinkageIndex:
                 "packed": torch.from_numpy(
                     np.ascontiguousarray(self.packed).view(np.int32)
                 ).to(dev),
-                "starts": tuple(up(r.starts) for r in self.rules),
-                "sizes": tuple(up(r.sizes) for r in self.rules),
-                "rows": tuple(up(r.rows_sorted) for r in self.rules),
-                "row_bucket": tuple(up(r.row_bucket) for r in self.rules),
+                "starts": tuple(up(r.starts) for r in units),
+                "sizes": tuple(up(r.sizes) for r in units),
+                "rows": tuple(up(r.rows_sorted) for r in units),
+                "row_bucket": tuple(up(r.row_bucket) for r in units),
                 "params": FSParams(
                     lam=torch.tensor(np.asarray(self.lam, dt), device=dev),
                     m=torch.from_numpy(self.m.astype(dt)).to(dev),
@@ -448,7 +529,10 @@ class LinkageIndex:
         null. Char/length/numeric encoding is pinned to the reference layout
         (width, ascii/wide kind, f32/f64 lanes), so the packed query matrix
         is gather-compatible with the resident reference matrix and gammas
-        are bit-identical to the offline program on shared records."""
+        are bit-identical to the offline program on shared records. With
+        the approximate tier, the queries whose exact keys all missed
+        resolve their LSH band keys instead (signatures are computed for
+        those rows only)."""
         settings = self.settings
         uid_col = settings["unique_id_column_name"]
         if uid_col not in df.columns:
@@ -488,11 +572,25 @@ class LinkageIndex:
                 f"index holds {self.n_lanes} — the settings or encoding "
                 "drifted from the artifact"
             )
-        qbuckets = np.full((len(self.rules), len(df)), -1, np.int32)
+        n_rules = len(self.rules)
+        qbuckets = np.full((len(self.gather_units), len(df)), -1, np.int32)
         for r, rule in enumerate(self.rules):
             tokens = [_canonical_key_values(qtable, col) for col in rule.key_cols]
             for q in range(len(df)):
                 qbuckets[r, q] = rule.query_bucket([t[q] for t in tokens])
+        approx_used = None
+        if self.approx is not None:
+            missed = ~(qbuckets[:n_rules] >= 0).any(axis=0)
+            approx_used = np.zeros(len(df), bool)
+            if missed.any():
+                rows = np.flatnonzero(missed)
+                keys, has_sig = self._query_band_keys(qtable, rows)
+                for b, band in enumerate(self.approx.band_index):
+                    row = qbuckets[n_rules + b]
+                    for k, q in enumerate(rows):
+                        if has_sig[k]:
+                            row[q] = band.bucket_of.get(int(keys[k, b]), -1)
+                approx_used = missed & (qbuckets[n_rules:] >= 0).any(axis=0)
         tf_tids = None
         fold_cols = self.tf_fold_columns()
         if fold_cols:
@@ -503,8 +601,27 @@ class LinkageIndex:
             packed=packed_q,
             qbuckets=qbuckets,
             n=len(df),
+            approx_used=approx_used,
             tf_tids=tf_tids,
         )
+
+    def _query_band_keys(self, qtable: EncodedTable, rows: np.ndarray):
+        """(keys (len(rows), bands) uint32, has_sig (len(rows),) bool) for
+        the given query rows, on the index's device: every approximate
+        column re-encoded at the REFERENCE width and kind, so shared values
+        have the index build's gram sets."""
+        from ..approx.minhash import band_key_arrays
+
+        ap = self.approx
+        columns = []
+        for name in ap.cols:
+            sc = qtable.strings.get(name)
+            if sc is None:
+                raise ValueError(f"query data is missing approx column {name!r}")
+            meta = ap.col_meta[name]
+            columns.append(_encode_query_bytes(sc, int(meta["width"]), meta["kind"], rows))
+        return band_key_arrays(columns, ap.q, ap.bands, ap.rows_per_band, idf=ap.idf,
+                               device=self.device)
 
     def _pin_string_column(
         self, sc: EncodedStringColumn, meta: dict
@@ -569,6 +686,14 @@ class LinkageIndex:
             arrays[f"rule{r}_starts"] = rule.starts
             arrays[f"rule{r}_sizes"] = rule.sizes
             arrays[f"rule{r}_row_bucket"] = rule.row_bucket
+        if self.approx is not None:
+            for b, band in enumerate(self.approx.band_index):
+                arrays[f"approx{b}_rows"] = band.rows_sorted
+                arrays[f"approx{b}_starts"] = band.starts
+                arrays[f"approx{b}_sizes"] = band.sizes
+                arrays[f"approx{b}_row_bucket"] = band.row_bucket
+            if self.approx.idf is not None:
+                arrays["approx_idf"] = self.approx.idf
         for name, counts in self.tf_tables.items():
             arrays[f"tf_{name}"] = counts
         for name, tids in self.tf_tids.items():
@@ -607,7 +732,22 @@ class LinkageIndex:
             ],
             "tf_columns": sorted(self.tf_tables),
             "tf_tid_columns": sorted(self.tf_tids),
-            "approx": None,
+            "approx": (
+                None
+                if self.approx is None
+                else {
+                    "cols": list(self.approx.cols),
+                    "col_meta": self.approx.col_meta,
+                    "q": self.approx.q,
+                    "bands": self.approx.bands,
+                    "rows_per_band": self.approx.rows_per_band,
+                    # JSON keys are strings; band keys are uint32 ints
+                    "bucket_of": [
+                        {str(k): v for k, v in band.bucket_of.items()}
+                        for band in self.approx.band_index
+                    ],
+                }
+            ),
             "profile": None,
             "n_rows": self.n_rows,
             "unique_id_json": (
@@ -628,8 +768,9 @@ class LinkageIndex:
         except OSError:  # pragma: no cover - sweep is best-effort
             pass
         logger.info(
-            "linkage index saved: %s (%d rows, %d rules, %d lanes)",
-            directory, self.n_rows, len(self.rules), self.n_lanes,
+            "linkage index saved: %s (%d rows, %d rules, %d approx bands, %d lanes)",
+            directory, self.n_rows, len(self.rules),
+            0 if self.approx is None else self.approx.bands, self.n_lanes,
         )
         return path
 
@@ -711,8 +852,6 @@ def load_index(directory: str | os.PathLike, device=None) -> LinkageIndex:
             f"(settings hash {meta.get('state_hash')!r}, recomputed "
             f"{expect!r}); rebuild the index"
         )
-    if meta.get("approx") is not None:
-        raise _not_ported("an index artifact with approximate LSH bands", _APPROX_ITEM)
     if meta.get("profile") is not None:
         raise _not_ported("an index artifact with a quality profile", _PROFILE_ITEM)
     npz = np.load(io.BytesIO(payload), allow_pickle=False)
@@ -736,6 +875,27 @@ def load_index(directory: str | os.PathLike, device=None) -> LinkageIndex:
     # legacy artifacts carry no per-row token ids ("tf_tid_columns"
     # absent): tf_tids stays empty and the index serves unadjusted
     tf_tids = {name: npz[f"tftid_{name}"] for name in meta.get("tf_tid_columns", [])}
+    approx = None
+    am = meta.get("approx")
+    if am is not None:
+        approx = ApproxServe(
+            cols=list(am["cols"]),
+            col_meta=dict(am["col_meta"]),
+            q=int(am["q"]),
+            bands=int(am["bands"]),
+            rows_per_band=int(am["rows_per_band"]),
+            idf=npz["approx_idf"] if "approx_idf" in npz.files else None,
+            band_index=[
+                ApproxBand(
+                    rows_sorted=npz[f"approx{b}_rows"],
+                    starts=npz[f"approx{b}_starts"],
+                    sizes=npz[f"approx{b}_sizes"],
+                    row_bucket=npz[f"approx{b}_row_bucket"],
+                    bucket_of={int(k): v for k, v in bo.items()},
+                )
+                for b, bo in enumerate(am["bucket_of"])
+            ],
+        )
     index = LinkageIndex(
         settings=settings,
         dtype=meta["dtype"],
@@ -752,6 +912,7 @@ def load_index(directory: str | os.PathLike, device=None) -> LinkageIndex:
         tf_tables=tf_tables,
         state_hash=meta["state_hash"],
         tf_tids=tf_tids,
+        approx=approx,
         device=device,
     )
     return _attach_rebuilt_layout(index)
@@ -886,8 +1047,6 @@ def build_index(linker, *, clear_caches: bool = True) -> LinkageIndex:
     bucket build warms, which the index does not need.
     """
     settings = linker.settings
-    if settings.get("approx_blocking"):
-        raise _not_ported("a serving index with approx_blocking", _APPROX_ITEM)
     if settings.get("quality_profile"):
         raise _not_ported("a serving index with quality_profile", _PROFILE_ITEM)
     table = linker._ensure_encoded()
@@ -956,6 +1115,10 @@ def build_index(linker, *, clear_caches: bool = True) -> LinkageIndex:
             )
             for rule in rules_text
         ]
+        approx = None
+        if settings.get("approx_blocking"):
+            approx = _build_approx_serve(
+                table, settings, linker.device, linker.device if device_csr else None)
 
         from ..term_frequencies import term_frequency_columns, tf_fold_spec
 
@@ -994,11 +1157,40 @@ def build_index(linker, *, clear_caches: bool = True) -> LinkageIndex:
             tf_tables=tf_tables,
             state_hash=state_hash,
             tf_tids=tf_tids,
+            approx=approx,
             device=linker.device,
         )
     finally:
         if clear_caches:
             clear_key_code_cache(table)
+
+
+def _bucket_csr(codes: np.ndarray, device=None):
+    """The bucket CSR over key codes: (rows_sorted, starts, sizes,
+    row_bucket) int32 arrays, rows grouped by ascending code, row_bucket
+    -1 for null codes. With a ``device`` it is built there
+    (``blocking_device.build_bucket_csr``, equal to the host construction);
+    with None, or codes past int32, by the host argsort. When every code is
+    null: a 1-element dummy CSR (one empty bucket) so that device gathers
+    stay in bounds; no query resolves it."""
+    n = len(codes)
+    csr = None
+    if device is not None and n:
+        from ..blocking_device import build_bucket_csr
+
+        csr = build_bucket_csr(codes, device=device)
+    if csr is None:
+        rows = np.flatnonzero(codes >= 0).astype(np.int32)
+        rows_sorted, _uniq, starts, sizes = _sort_groups(codes, rows)
+        row_bucket = np.full(n, -1, np.int32)
+        row_bucket[rows_sorted] = np.repeat(np.arange(len(starts), dtype=np.int32), sizes)
+        csr = rows_sorted, starts, sizes, row_bucket
+    rows_sorted, starts, sizes, row_bucket = csr
+    if len(starts) == 0:
+        return (np.zeros(1, np.int32), np.zeros(1, np.int32), np.zeros(1, np.int32),
+                np.full(n, -1, np.int32))
+    return (rows_sorted.astype(np.int32), starts.astype(np.int32), sizes.astype(np.int32),
+            row_bucket)
 
 
 def _build_serve_rule(table: EncodedTable, rule: str, device=None) -> ServeRule:
@@ -1008,35 +1200,10 @@ def _build_serve_rule(table: EncodedTable, rule: str, device=None) -> ServeRule:
     construction); with None, or codes past int32, by the host argsort. The
     host keeps the O(buckets) representative-token dict loop either way."""
     key_cols = _rule_key_cols(rule)
-    codes = _key_codes(table, key_cols)
-    n = table.n_rows
-    csr = None
-    if device is not None and n:
-        from ..blocking_device import build_bucket_csr
-
-        csr = build_bucket_csr(codes, device=device)
-    if csr is not None:
-        rows_sorted, starts, sizes, row_bucket = csr
-        n_buckets = len(starts)
-    else:
-        row_bucket = None
-        rows = np.flatnonzero(codes >= 0).astype(np.int32)
-        rows_sorted, uniq_codes, starts, sizes = _sort_groups(codes, rows)
-        n_buckets = len(uniq_codes)
-    if n_buckets == 0:
-        # every key null: empty dict, 1-element dummy CSR so device
-        # gathers stay in bounds (qbucket is always -1)
-        return ServeRule(
-            rule=rule,
-            key_cols=key_cols,
-            rows_sorted=np.zeros(1, np.int32),
-            starts=np.zeros(1, np.int32),
-            sizes=np.zeros(1, np.int32),
-            row_bucket=np.full(n, -1, np.int32),
-        )
-    if row_bucket is None:
-        row_bucket = np.full(n, -1, np.int32)
-        row_bucket[rows_sorted] = np.repeat(np.arange(n_buckets, dtype=np.int32), sizes)
+    rows_sorted, starts, sizes, row_bucket = _bucket_csr(_key_codes(table, key_cols), device)
+    if len(starts) == 1 and sizes[0] == 0:  # every key null: the dummy CSR
+        return ServeRule(rule=rule, key_cols=key_cols, rows_sorted=rows_sorted,
+                         starts=starts, sizes=sizes, row_bucket=row_bucket)
     # host-side key -> bucket dictionary from one representative row per
     # bucket, via the same canonicalisation queries resolve through
     reps = rows_sorted[starts]
@@ -1057,12 +1224,45 @@ def _build_serve_rule(table: EncodedTable, rule: str, device=None) -> ServeRule:
     return ServeRule(
         rule=rule,
         key_cols=key_cols,
-        rows_sorted=rows_sorted.astype(np.int32),
-        starts=starts.astype(np.int32),
-        sizes=sizes.astype(np.int32),
+        rows_sorted=rows_sorted,
+        starts=starts,
+        sizes=sizes,
         row_bucket=row_bucket,
         bucket_of=bucket_of,
     )
+
+
+def _build_approx_serve(table: EncodedTable, settings: dict, device, csr_device=None):
+    """The index's LSH fallback: band-key bucket CSRs over the approximate
+    columns (the offline tier's band keys, computed on ``device``), or None
+    when no approximate column exists; the CSRs are built on ``csr_device``
+    (:func:`_bucket_csr`). A bucket wider than ``lsh.MAX_BUCKET_ROWS`` stays in its
+    CSR (the cross-band dedup reads row_bucket) but is left out of the
+    dictionary, so a query never resolves it: the contract the offline
+    tier keeps by nulling such buckets."""
+    from ..approx.lsh import MAX_BUCKET_ROWS, ApproxConfig, compute_band_codes
+
+    cfg = ApproxConfig.from_settings(settings, table)
+    if cfg is None:
+        return None
+    band_codes, uniq_keys, idf = compute_band_codes(table, cfg, device=device)
+    col_meta = {
+        name: {"width": int(table.strings[name].width),
+               "kind": "ascii" if table.strings[name].bytes_.dtype == np.uint8 else "wide"}
+        for name in cfg.cols
+    }
+    bands = []
+    for b in range(cfg.bands):
+        rows_sorted, starts, sizes, row_bucket = _bucket_csr(band_codes[b], csr_device)
+        # the codes factorise the band keys (every code 0..K-1 present), so
+        # bucket k holds code k, in ascending band-key order; an empty
+        # band's dummy bucket has no key
+        bucket_of = {int(uniq_keys[b][k]): int(k) for k in range(len(uniq_keys[b]))
+                     if sizes[k] <= MAX_BUCKET_ROWS}
+        bands.append(ApproxBand(rows_sorted=rows_sorted, starts=starts, sizes=sizes,
+                                row_bucket=row_bucket, bucket_of=bucket_of))
+    return ApproxServe(cols=list(cfg.cols), col_meta=col_meta, q=cfg.q, bands=cfg.bands,
+                       rows_per_band=cfg.rows_per_band, band_index=bands, idf=idf)
 
 
 def _layout_rebuild_table(index: LinkageIndex) -> EncodedTable:

@@ -73,8 +73,8 @@ class QueryResult:
     ``shed`` requests carry a machine-readable ``reason``: ``queue_full``
     / ``deadline`` / ``timeout`` / ``breaker_open`` / ``batch_error`` /
     ``worker_restart`` / ``closed``. ``degraded`` marks a brown-out answer.
-    ``approx`` is always False here (the approximate serve bands are not
-    ported)."""
+    ``approx`` marks an answer found through the approximate tier's
+    fallback (the query's exact keys hit no bucket)."""
 
     matches: list = field(default_factory=list)  # [(ref_uid, probability)]
     n_candidates: int = 0
@@ -660,9 +660,11 @@ class LinkageService:
             logger.info("serve brown-out ended (queue %.0f%% full)", q_fill * 100)
 
     def _score(self, df, degraded: bool = False, profile=None) -> list[QueryResult]:
+        approx_out: list = []
         top_p, top_rows, top_valid, n_cand = self.engine.query_arrays(
-            df, degraded=degraded, profile=profile
+            df, degraded=degraded, profile=profile, approx_out=approx_out
         )
+        approx_used = approx_out[0]
         uids = self.engine.index.unique_id
         out = []
         for i in range(len(df)):
@@ -671,7 +673,8 @@ class LinkageService:
                 for r in range(top_p.shape[1])
                 if top_valid[i, r]
             ]
-            out.append(QueryResult(matches=matches, n_candidates=int(n_cand[i])))
+            out.append(QueryResult(matches=matches, n_candidates=int(n_cand[i]),
+                                   approx=bool(approx_used[i])))
         return out
 
     # -- watchdog -------------------------------------------------------

@@ -46,7 +46,7 @@ import torch
 
 from ._device import resolve_device
 from .check_types import check_types
-from .models.fellegi_sunter import _safe_log
+from .models.fellegi_sunter import _safe_log, flush_subnormal
 from .params import Params
 
 # Device aggregations by device type ("cuda", "cpu"): each call of
@@ -304,9 +304,9 @@ def make_tf_fold_fn(spec: tuple):
     n_tf = len(spec)
 
     def fold(z, u, *arrs):
-        return torch.sigmoid(tf_fold_logit(
+        return flush_subnormal(torch.sigmoid(tf_fold_logit(
             spec, z, _safe_log(u), arrs[:n_tf], arrs[n_tf:2 * n_tf], arrs[2 * n_tf:]
-        ))
+        )))
 
     return fold
 

@@ -1,7 +1,7 @@
 """Encoding and host blocking of splink_tpu_torch against splink_tpu.
 
-The port copies splink_tpu's host join and its ``spill_dir`` sink (minus
-the device and approximate tiers, which raise), so on the same frame and
+The port copies splink_tpu's host join and its ``spill_dir`` sink (the
+device and approximate tiers have test files of their own), so on the same frame and
 rules the pair index arrays must be EQUAL, in order, for all three link
 types and every rule shape: equality conjunctions, derived keys,
 cross-column keys, residual predicates, sequential-rule dedup and the

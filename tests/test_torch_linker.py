@@ -379,7 +379,6 @@ def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, 
     [
         {"mesh": {"data": 2}},
         {"telemetry_dir": "tel"},
-        {"approx_blocking": True},
     ],
     ids=lambda o: next(iter(o)),
 )

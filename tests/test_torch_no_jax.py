@@ -16,6 +16,8 @@ with the spill-fed streamed EM. Then serving: ``export_index``, a saved and
 loaded artifact, a warmed QueryEngine, a LinkageService answering
 submitted records (the obs copies it builds included), and ``python -m
 splink_tpu_torch.serve`` (``--help``, ``build`` and ``query`` on the CPU).
+Last, the approximate tier (``approx_blocking`` with TF weighting) in
+training and in an index's serving fallback.
 """
 
 import os
@@ -59,7 +61,7 @@ for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "
              "serve", "serve.index", "serve.engine", "serve.service", "serve.bucketing",
              "serve.admission", "serve.health", "serve.__main__", "analysis.lockwatch",
              "obs.events", "obs.flight", "obs.reqtrace", "obs.slo", "obs.kernelwatch",
-             "obs.metrics"):
+             "obs.metrics", "approx", "approx.minhash", "approx.lsh"):
     assert f"splink_tpu_torch.{want}" in names, want
 
 
@@ -171,6 +173,17 @@ with contextlib.redirect_stdout(io.StringIO()) as buf:
     except SystemExit as e:
         assert e.code == 0, e.code
 assert "build" in buf.getvalue() and "bench" in buf.getvalue()
+# the approximate tier: training with it, and an index serving garbled
+# queries through its fallback
+approx = dict(settings, approx_blocking=True, approx_threshold=0.2, approx_pair_budget=2000,
+              approx_tf_weighting=True, comparison_columns=settings["comparison_columns"][:4],
+              blocking_rules=["l.blk = r.blk"])
+alinker = splink_tpu_torch.Splink(approx, df=df, device="cpu")
+aout = alinker.get_scored_comparisons()
+assert len(aout) > 1000 and np.isfinite(aout["match_probability"]).all()
+aengine = QueryEngine(alinker.export_index(), top_k=8, policy=BucketPolicy((16,), (512,)))
+garbled = df.head(10).assign(blk=-1)
+assert aengine.query(garbled)["approx"].any()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok", len(names), len(out))
