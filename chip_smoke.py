@@ -75,7 +75,27 @@ the CPU on 5,000 base rows (unweighted and TF-weighted; a weighted lane
 may part only at a near tie), and an index over those base rows serves
 every garbled twin through its fallback, tagged ``approx``, with
 probabilities ``==`` the offline ones, bit-identically after a save and a
-load, with no kernel library built after warmup. Every phase prints one JSON line; any failed check raises. The last lines are the
+load, with no kernel library built after warmup. The ``fleet`` phase,
+right after ``serve``, runs over the serve phase's index, engine and
+queries: it saves the engine's AOT library sidecar and starts three child
+replicas (``chip_smoke.py --aot-child``) with empty build directories: A
+from the sidecar with no nvcc or g++ reachable (0 builds, every library
+restored), B without a sidecar (it builds), C from a sidecar with one
+byte of one blob flipped (one ``corrupt_blob`` event, that library
+built); each answers 1,024 queries ``==`` the parent and reports its
+seconds from spawn to first answer. It then replays the 10,000 queries
+through a WireServer and a RemoteReplica (submit and submit_many; every
+delivered answer ``==`` the batch path's, two dense Jaro-Winkler launches
+and one Levenshtein launch a service batch), measures 8 closed-loop
+clients over the wire and in process, puts a ReplicaRouter over two more
+replicas on the card, kills server A a third into a routed replay (no
+request past its deadline, every delivered answer ``==``, a failover
+counted), restarts it, partitions B from its accept site (a
+``wire_accept`` fault in B's settings) until it heals and reconnects
+(``wire_reconnect`` in the flight recorder), federates both replicas
+(merged counters and histograms equal to the union, both in the
+Prometheus text) and opens B's breaker for exactly one incident bundle.
+Every phase prints one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
 
@@ -1938,7 +1958,519 @@ def serve_phase(torch, strings_cuda, native, tf, linker, tf_linker, df, out_dir)
     if compile_requests() != builds_after_warmup:
         raise AssertionError("kernel libraries were built after warmup")
     fields["builds_after_warmup"] = compile_requests() - builds_after_warmup
-    return fields, captured
+    return fields, captured, {"engine": engine, "idx_dir": idx_dir, "qdf": qdf, "answers": out}
+
+
+# ----------------------------------------------------------------------
+# The serving fleet: the AOT library sidecar, the wire tier, the router,
+# federation
+# ----------------------------------------------------------------------
+
+FLEET_CHILD_QUERIES = 1_024  # a cold replica's first answers
+FLEET_WINDOW = 256  # futures in flight per submit window; records per submit_many frame
+FLEET_SUBMIT_QUERIES = 5_000  # of the replay's 10,000, through submit; the rest submit_many
+FLEET_LATENCY_QUERIES = 1_000  # closed-loop clients, over the wire and in process
+FLEET_ROUTER_QUERIES = 1_500  # routed over two replicas, server A killed a third in
+FLEET_DEADLINE_MS = 2_000.0  # each routed request's deadline
+FLEET_PARTITION_MS = 1_500
+FLEET_WAIT_S = 30.0  # bound on every wait of the phase
+FLEET_CHILD_TIMEOUT_S = 400
+FLEET_SHED_REASONS = {"connection_lost", "remote_unreachable", "breaker_open", "deadline",
+                      "timeout", "queue_full", "closed", "no_replica", "batch_error"}
+
+
+def aot_child(index_dir: str, aot_dir: str, queries: str, out_path: str,
+              device: str = "cuda") -> int:
+    """``chip_smoke.py --aot-child``: a fresh replica's cold start. Loads the
+    index, builds a QueryEngine over it (with the sidecar at ``aot_dir``
+    unless it is empty), restores, warms up and answers the pickled
+    queries; writes its timestamps, build and restore counts, degradation
+    events and whether a compiler is reachable to ``out_path`` and its
+    answers beside it (``.npz``)."""
+    t_start = time.time()
+    import shutil
+
+    import pandas as pd
+    import torch
+
+    from splink_tpu_torch.obs import events
+    from splink_tpu_torch.obs.metrics import compile_stats
+    from splink_tpu_torch.ops import strings_cuda
+    from splink_tpu_torch.serve import QueryEngine, load_index
+
+    class Sink:
+        def __init__(self):
+            self.degradations = []
+
+        def emit(self, etype, **fields):
+            if etype == "degradation":
+                self.degradations.append({k: str(v) for k, v in fields.items()})
+
+    sink = Sink()
+    events.register_ambient(sink)
+    t_import = time.time()
+    index = load_index(index_dir, device=device)
+    index.device_state()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t_load = time.time()
+    engine = QueryEngine(index, brownout_top_k=SERVE_BROWNOUT_TOP_K, aot_dir=aot_dir or None)
+    restored = engine.restore_aot()
+    t_restore = time.time()
+    warm = engine.warmup()
+    t_warm = time.time()
+    qdf = pd.read_pickle(queries)
+    out = engine.query_arrays(qdf)
+    t_answer = time.time()
+    try:
+        nvcc = strings_cuda.cuda_tool("nvcc")
+    except RuntimeError:
+        nvcc = None
+    np.savez(out_path + ".npz", *out)
+    with open(out_path, "w") as fh:
+        json.dump({
+            "t_start": t_start, "t_import": t_import, "t_load": t_load,
+            "t_restore": t_restore, "t_warm": t_warm, "t_answer": t_answer,
+            "restored": restored, "warmup": warm, "stats": compile_stats(),
+            "degradations": sink.degradations, "gxx": shutil.which("g++"), "nvcc": nvcc,
+            "built": sorted(os.listdir(strings_cuda.build_dir())),
+        }, fh)
+    return 0
+
+
+def _run_aot_child(name, idx_dir, aot_dir, queries, out_dir, device, compilers: bool):
+    """Run one ``--aot-child`` with an empty build directory; returns its
+    report (seconds measured from the spawn) and answers."""
+    import shutil
+
+    build = os.path.join(out_dir, f"fleet_build_{name}")
+    shutil.rmtree(build, ignore_errors=True)
+    os.makedirs(build)
+    env = dict(os.environ, SPLINK_TPU_TORCH_BUILD_DIR=build)
+    if not compilers:
+        empty = os.path.join(out_dir, f"fleet_nobin_{name}")
+        os.makedirs(empty, exist_ok=True)
+        env.update(PATH=empty, CUDA_HOME=empty)
+    out_path = os.path.join(out_dir, f"fleet_child_{name}.json")
+    spawn = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--aot-child", idx_dir, aot_dir, queries,
+         out_path, device],
+        env=env, capture_output=True, text=True, timeout=FLEET_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"aot child {name} failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(out_path) as fh:
+        rep = json.load(fh)
+    got = np.load(out_path + ".npz")
+    answers = tuple(got[f"arr_{i}"] for i in range(4))
+    rep["seconds"] = {
+        "interpreter_and_imports": rep["t_import"] - spawn,
+        "load": rep["t_load"] - rep["t_import"],
+        "restore": rep["t_restore"] - rep["t_load"],
+        "warmup": rep["t_warm"] - rep["t_restore"],
+        "first_answer": rep["t_answer"] - rep["t_warm"],
+        "start_to_first_answer": rep["t_answer"] - spawn,
+    }
+    shutil.rmtree(build, ignore_errors=True)
+    return rep, answers
+
+
+def _expected_matches(uid, answers, i):
+    top_p, top_rows, top_valid, _ = answers
+    return [(uid[top_rows[i, r]], float(top_p[i, r]))
+            for r in range(top_p.shape[1]) if top_valid[i, r]]
+
+
+def _check_results(results, expect, what):
+    """Raise unless every delivered full-service answer equals its
+    expected matches and candidate count and every shed names a known
+    reason; returns (delivered, degraded, shed reasons)."""
+    delivered, degraded, reasons = 0, 0, {}
+    for i, res in enumerate(results):
+        if res is None:
+            raise AssertionError(f"{what}: request {i} did not resolve")
+        if res.shed:
+            if res.reason not in FLEET_SHED_REASONS:
+                raise AssertionError(f"{what}: request {i} shed with reason {res.reason!r}")
+            reasons[res.reason] = reasons.get(res.reason, 0) + 1
+            continue
+        if res.degraded:
+            degraded += 1
+            continue
+        want_m, want_n = expect(i)
+        if res.matches != want_m or res.n_candidates != want_n:
+            raise AssertionError(f"{what}: answer {i} differs from the in-process one: "
+                                 f"{res.matches[:3]} vs {want_m[:3]}")
+        delivered += 1
+    return delivered, degraded, reasons
+
+
+def _closed_loop(call, records, clients):
+    """Per-request client-side latencies (ms) of ``clients`` closed-loop
+    threads calling ``call(record) -> QueryResult``; returns (lat, results)."""
+    import threading
+
+    lat = [None] * len(records)
+    results = [None] * len(records)
+
+    def client(t):
+        for i in range(t, len(records), clients):
+            t0 = time.perf_counter()
+            results[i] = call(records[i])
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return np.asarray(lat, np.float64), results
+
+
+def _percentiles(lat):
+    p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+    return {"p50_ms": float(p50), "p95_ms": float(p95), "p99_ms": float(p99),
+            "mean_ms": float(lat.mean())}
+
+
+def _wait_for(cond, what, timeout=FLEET_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def fleet_phase(torch, strings_cuda, native, tf, engine, idx_dir, qdf, answers, out_dir,
+                device="cuda"):
+    """The serving fleet over the serve phase's index, engine, queries and
+    batch-path answers: cold starts from the AOT sidecar in child
+    processes, the replay over the wire, two replicas behind a router with
+    a kill and a partition, federation and an incident bundle. Returns
+    (fields, kernel launches of the wire replay)."""
+    import shutil
+    import socket
+
+    from splink_tpu_torch.obs.events import register_ambient, unregister_ambient
+    from splink_tpu_torch.obs.exposition import render_samples
+    from splink_tpu_torch.obs.fleet import FleetAggregator, FleetIncidentReporter
+    from splink_tpu_torch.obs.flight import FlightRecorder
+    from splink_tpu_torch.resilience import faults
+    from splink_tpu_torch.serve import (
+        LinkageService,
+        QueryEngine,
+        RemoteReplica,
+        ReplicaRouter,
+        WireServer,
+        load_index,
+    )
+    from splink_tpu_torch.serve.aot import MENU_NAME, libraries
+
+    uid = engine.index.unique_id
+    n_libs = len(libraries(engine.device))
+    fields = {}
+
+    def expect(i):
+        return _expected_matches(uid, answers, i), int(answers[3][i])
+
+    # -- 1. cold start from the sidecar, in child processes ----------------
+    aot_dir = os.path.join(out_dir, "fleet_aot")
+    shutil.rmtree(aot_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    engine.save_aot(aot_dir)
+    save_s = time.perf_counter() - t0
+    with open(os.path.join(aot_dir, MENU_NAME)) as fh:
+        menu = json.load(fh)
+    queries = os.path.join(out_dir, "fleet_queries.pkl")
+    qdf.iloc[:FLEET_CHILD_QUERIES].to_pickle(queries)
+    want = tuple(a[:FLEET_CHILD_QUERIES] for a in answers)
+
+    def same(got):
+        return all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(got, want))
+
+    rep_a, got_a = _run_aot_child("A", idx_dir, aot_dir, queries, out_dir, device, False)
+    if rep_a["gxx"] or rep_a["nvcc"]:
+        raise AssertionError(f"child A could reach a compiler: {rep_a['gxx']}, {rep_a['nvcc']}")
+    if rep_a["stats"]["compiles"] != 0 or rep_a["stats"]["aot_restores"] != n_libs:
+        raise AssertionError(f"child A: {rep_a['stats']}, expected 0 builds and {n_libs} "
+                             "restores")
+    if rep_a["degradations"] or not same(got_a):
+        raise AssertionError(f"child A: events {rep_a['degradations']}, answers equal "
+                             f"{same(got_a)}")
+    rep_b, got_b = _run_aot_child("B", idx_dir, "", queries, out_dir, device, True)
+    if rep_b["stats"]["compiles"] < 1 or rep_b["stats"]["aot_restores"] != 0 or not same(got_b):
+        raise AssertionError(f"child B: {rep_b['stats']}, answers equal {same(got_b)}")
+    bad_aot = os.path.join(out_dir, "fleet_aot_corrupt")
+    shutil.rmtree(bad_aot, ignore_errors=True)
+    shutil.copytree(aot_dir, bad_aot)
+    victim = "jaro_winkler" if "jaro_winkler" in menu["libraries"] else "host"
+    blob_path = os.path.join(bad_aot, menu["libraries"][victim]["file"])
+    with open(blob_path, "rb") as fh:
+        blob = bytearray(fh.read())
+    blob[len(blob) // 2] ^= 0x01
+    with open(blob_path, "wb") as fh:
+        fh.write(bytes(blob))
+    rep_c, got_c = _run_aot_child("C", idx_dir, bad_aot, queries, out_dir, device, True)
+    events_c = [e["to"] for e in rep_c["degradations"] if e.get("from") == "serve_aot"]
+    if (events_c != ["corrupt_blob"] or rep_c["stats"]["aot_restores"] != n_libs - 1
+            or rep_c["stats"]["compiles"] != 1 or not same(got_c)):
+        raise AssertionError(f"child C: events {rep_c['degradations']}, {rep_c['stats']}, "
+                             f"answers equal {same(got_c)}")
+    shutil.rmtree(bad_aot, ignore_errors=True)
+    fields["cold_start"] = {
+        "sidecar": {"save_s": save_s, "libraries": {
+            k: {"bytes": v["bytes"], "library": v["library"]}
+            for k, v in menu["libraries"].items()}, "toolchain": menu["toolchain"]},
+        "queries": FLEET_CHILD_QUERIES,
+        **{name: {"seconds": r["seconds"], "stats": r["stats"], "restored": r["restored"],
+                  "warmup": r["warmup"], "answers_equal": True,
+                  "compiler_reachable": bool(r["gxx"] or r["nvcc"]),
+                  "degradations": [e["to"] for e in r["degradations"]]}
+           for name, r in (("A_sidecar_no_compiler", rep_a), ("B_no_sidecar", rep_b),
+                           (f"C_corrupt_{victim}_blob", rep_c))},
+        "saved_s": rep_b["seconds"]["start_to_first_answer"]
+        - rep_a["seconds"]["start_to_first_answer"],
+    }
+
+    # -- 2. the replay over the wire ----------------------------------------
+    records = qdf.to_dict(orient="records")
+    svc = LinkageService(engine, deadline_ms=SERVE_COALESCE_MS, probe_queries=0, name="fleet")
+    server = WireServer(svc).start()
+    remote = RemoteReplica(server.address, pool_size=2, request_timeout_ms=FLEET_WAIT_S * 1e3,
+                           name="remote:fleet")
+    zero_counts(strings_cuda, native, tf)
+    b0 = svc.latency_summary()["batches"]
+    results = [None] * len(records)
+    t0 = time.perf_counter()
+    for start in range(0, FLEET_SUBMIT_QUERIES, FLEET_WINDOW):
+        futs = [remote.submit(records[i])
+                for i in range(start, min(start + FLEET_WINDOW, FLEET_SUBMIT_QUERIES))]
+        for k, f in enumerate(futs):
+            results[start + k] = f.result(timeout=FLEET_WAIT_S)
+    submit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for start in range(FLEET_SUBMIT_QUERIES, len(records), FLEET_WINDOW):
+        futs = remote.submit_many(records[start:start + FLEET_WINDOW])
+        for k, f in enumerate(futs):
+            results[start + k] = f.result(timeout=FLEET_WAIT_S)
+    many_s = time.perf_counter() - t0
+    batches = svc.latency_summary()["batches"] - b0
+    launches = dict(strings_cuda.launches)
+    variants = dict(strings_cuda.variant_launches)
+    want_v = {"jaro_winkler/u8/w1": 2 * batches, "levenshtein/u8/w1": batches}
+    if device == "cuda" and variants != want_v:
+        raise AssertionError(f"the wire replay launched {variants}, expected {want_v}")
+    delivered, degraded, reasons = _check_results(results, expect, "wire replay")
+    for part, lo, hi in (("submit", 0, FLEET_SUBMIT_QUERIES),
+                         ("submit_many", FLEET_SUBMIT_QUERIES, len(records))):
+        if not any(r is not None and not r.shed for r in results[lo:hi]):
+            raise AssertionError(f"the wire replay delivered nothing through {part}")
+    fields["wire_replay"] = {
+        "queries": len(records), "submit": FLEET_SUBMIT_QUERIES,
+        "submit_many": len(records) - FLEET_SUBMIT_QUERIES, "window": FLEET_WINDOW,
+        "submit_s": submit_s, "submit_many_s": many_s, "delivered_equal": delivered,
+        "degraded": degraded, "shed": reasons, "batches": batches, "launches": launches,
+        "variant_launches": variants,
+        "launches_per_batch": {k: v / max(batches, 1) for k, v in launches.items()},
+    }
+    lat_recs = records[:FLEET_LATENCY_QUERIES]
+    latency = {}
+    for mode, call in (
+        ("wire", lambda r: remote.submit(r).result(timeout=FLEET_WAIT_S)),
+        ("in_process", lambda r: svc.query(r, timeout=FLEET_WAIT_S)),
+        ("wire_again", lambda r: remote.submit(r).result(timeout=FLEET_WAIT_S)),
+    ):
+        t0 = time.perf_counter()
+        lat, res = _closed_loop(call, lat_recs, SERVE_CLIENTS)
+        wall = time.perf_counter() - t0
+        ok, deg, shed = _check_results(res, expect, f"closed loop {mode}")
+        latency[mode] = {**_percentiles(lat), "queries_per_s": len(lat_recs) / wall,
+                         "delivered_equal": ok, "degraded": deg, "shed": shed}
+    stats = svc.fleet_stats()
+    fields["latency"] = {"clients": SERVE_CLIENTS, "queries": FLEET_LATENCY_QUERIES,
+                         "coalesce_window_ms": SERVE_COALESCE_MS, **latency,
+                         "remote_summary": {k: v for k, v in remote.latency_summary().items()
+                                            if k in ("server", "network", "p50_ms", "p95_ms",
+                                                     "p99_ms")},
+                         "wire_phases": {k: {f: v.get(f) for f in ("observations",)}
+                                         for k, v in remote.wire_phases().items() if v},
+                         "fleet_stats": {"counters": stats["counters"],
+                                         "health": stats["health"],
+                                         "perf_phases": sorted((stats.get("perf") or {})
+                                                               .get("phases", {}))}}
+    remote.close()
+    server.close()
+    svc.close()
+
+    # -- 3. two replicas behind a router: a kill, a restart, a partition --
+    router_flight = FlightRecorder(1024, dump_dir=os.path.join(out_dir, "fleet_flight"),
+                                   name="router")
+    register_ambient(router_flight)
+    t0 = time.perf_counter()
+    engines, svcs, servers, remotes = [], [], [], []
+    for name in ("a", "b"):
+        eng = QueryEngine(load_index(idx_dir, device=device), brownout_top_k=SERVE_BROWNOUT_TOP_K)
+        eng.warmup()
+        engines.append(eng)
+        svcs.append(LinkageService(eng, deadline_ms=SERVE_COALESCE_MS, name=f"replica-{name}"))
+        servers.append(WireServer(svcs[-1]).start())
+        remotes.append(RemoteReplica(servers[-1].address, pool_size=2, name=f"remote:{name}",
+                                     request_timeout_ms=FLEET_WAIT_S * 1e3,
+                                     breaker_cooldown_s=0.2))
+    replicas_s = time.perf_counter() - t0
+    router = ReplicaRouter(remotes, hedge_ms=0)
+    rrecs = records[:FLEET_ROUTER_QUERIES]
+    done = [0]
+
+    def routed(r):
+        res = router.submit(r, deadline_ms=FLEET_DEADLINE_MS).result(timeout=FLEET_WAIT_S)
+        done[0] += 1
+        return res
+
+    import threading
+
+    def killer():
+        _wait_for(lambda: done[0] >= FLEET_ROUTER_QUERIES // 3, "a third of the replay")
+        servers[0].kill()
+
+    kt = threading.Thread(target=killer)
+    kt.start()
+    lat, res = _closed_loop(routed, rrecs, SERVE_CLIENTS)
+    kt.join()
+    ok, deg, shed = _check_results(res, expect, "router replay with server A killed")
+    if lat.max() > FLEET_DEADLINE_MS:
+        raise AssertionError(f"a routed request resolved {lat.max()} ms after submission, "
+                             f"past its {FLEET_DEADLINE_MS} ms deadline")
+    if router.failovers < 1:
+        raise AssertionError(f"the router shows no failover: {router.health()}")
+    kill = {"queries": len(rrecs), "deadline_ms": FLEET_DEADLINE_MS,
+            "killed_after": FLEET_ROUTER_QUERIES // 3, "delivered_equal": ok, "degraded": deg,
+            "shed": shed, "max_ms": float(lat.max()), **_percentiles(lat),
+            "router": {k: router.health()[k] for k in ("dispatched", "hedges", "failovers")},
+            "remote_a_sheds": remotes[0].sheds}
+    # server A restarts on its port; the remote's reconnector re-admits it
+    port_a = servers[0].port
+    servers[0] = WireServer(svcs[0], port=port_a).start()
+    _wait_for(lambda: not remotes[0].submit(rrecs[0]).result(timeout=FLEET_WAIT_S).shed,
+              "remote A to reconnect after the restart")
+    # a partition of B from its accept site: the next connection B accepts
+    # fires the plan in B's own settings (no other server reads them)
+    b_settings = engines[1].index.settings
+    healed = []
+
+    class HealSink:
+        def emit(self, etype, **f):
+            if etype == "wire_partition_heal":
+                healed.append(f)
+
+    heal_sink = HealSink()
+    register_ambient(heal_sink)
+    b_settings["fault_plan"] = f"wire_accept@kind=net_partition:delay_ms={FLEET_PARTITION_MS}"
+    faults.reset_plans()
+    t_part = time.monotonic()
+    try:
+        host, port = servers[1].address.rsplit(":", 1)
+        probe = socket.create_connection((host, int(port)), timeout=5)
+        _wait_for(lambda: servers[1].stats()["partitioned"], "the partition of B")
+        probe.close()
+        during = [router.submit(r, deadline_ms=FLEET_DEADLINE_MS).result(timeout=FLEET_WAIT_S)
+                  for r in rrecs[:64]]
+        ok_d, _, shed_d = _check_results(during, expect, "router during B's partition")
+        _wait_for(lambda: bool(healed), "B's partition to heal")
+        _wait_for(lambda: any(r.get("type") == "wire_reconnect"
+                              and r.get("replica") == remotes[1].name
+                              for r in router_flight.snapshot()),
+                  "remote B's wire_reconnect in the flight recorder")
+    finally:
+        b_settings.pop("fault_plan", None)
+        faults.reset_plans()
+        unregister_ambient(heal_sink)
+    heal_s = time.monotonic() - t_part
+    after = [remotes[1].submit(r).result(timeout=FLEET_WAIT_S) for r in rrecs[:64]]
+    ok_b, _, shed_b = _check_results(after, expect, "remote B after the heal")
+    if not ok_b:
+        raise AssertionError("remote B delivered nothing after the heal")
+    fields["router"] = {
+        "replicas_setup_s": replicas_s, "kill": kill,
+        "partition": {"delay_ms": FLEET_PARTITION_MS, "heal": healed[0],
+                      "trigger_to_reconnect_s": heal_s,
+                      "routed_during": {"delivered_equal": ok_d, "shed": shed_d},
+                      "remote_b_after": {"delivered_equal": ok_b, "shed": shed_b},
+                      "remote_b_reconnects": remotes[1].reconnects,
+                      "flight_transitions": sorted({r.get("type") for r in
+                                                    router_flight.snapshot()})},
+    }
+
+    # -- 4. federation and an incident bundle --------------------------------
+    agg = FleetAggregator(remotes=remotes)
+    t0 = time.perf_counter()
+    merged = agg.scrape(force=True)
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    raw = agg.raw_snapshots()
+    if len(raw) != 2:
+        raise AssertionError(f"the aggregator reached {len(raw)} of 2 replicas")
+    for key, value in merged["counters"].items():
+        if value != sum(s["counters"].get(key, 0) for s in raw):
+            raise AssertionError(f"merged counter {key} is not the sum of the replicas'")
+    for phase, h in (merged.get("perf") or {}).get("phases", {}).items():
+        parts = [s["perf"]["phases"][phase] for s in raw
+                 if phase in (s.get("perf") or {}).get("phases", {})]
+        total = 0.0
+        for part in parts:
+            total += part["sum"]
+        width = max(len(part["counts"]) for part in parts)
+        counts = [sum(part["counts"][i] for part in parts if i < len(part["counts"]))
+                  for i in range(width)]
+        if h["sum"] != total or h["n"] != sum(x["n"] for x in parts) or h["counts"] != counts:
+            raise AssertionError(f"merged histogram {phase} is not the union of the replicas'")
+    text = render_samples(agg.prometheus_samples())
+    for name in ("replica-a", "replica-b"):
+        if f'replica="{name}"' not in text:
+            raise AssertionError(f"the federated exposition lacks {name}")
+    if "splink_fleet_hosts 2" not in text:
+        raise AssertionError("the federated exposition does not count 2 hosts")
+    reporter = FleetIncidentReporter(local_flight=router_flight, remotes=remotes,
+                                     bundle_dir=os.path.join(out_dir, "fleet_incidents"),
+                                     interval_s=3600.0)
+    b_settings["fault_plan"] = "serve_batch@kind=transient:times=3"
+    faults.reset_plans()
+    try:
+        for r in rrecs[:3]:
+            res_b = svcs[1].query(r, timeout=FLEET_WAIT_S)
+            if not res_b.shed or res_b.reason != "batch_error":
+                raise AssertionError(f"an injected batch failure served: {res_b}")
+        if svcs[1].breaker.state != "open":
+            raise AssertionError(f"replica B's breaker is {svcs[1].breaker.state} after 3 "
+                                 "failed batches")
+        _wait_for(lambda: len(reporter.bundles) >= 1, "the incident bundle")
+        time.sleep(0.5)  # a second bundle would be a rate-limit failure
+    finally:
+        b_settings.pop("fault_plan", None)
+        faults.reset_plans()
+    if len(reporter.bundles) != 1 or "incident_breaker_open_" not in reporter.bundles[0]:
+        raise AssertionError(f"incident bundles {reporter.bundles}")
+    with open(os.path.join(reporter.bundles[0], "manifest.json")) as fh:
+        manifest = json.load(fh)
+    fields["federation"] = {
+        "scrape_ms": scrape_ms, "hosts": len(merged["hosts"]),
+        "counters": merged["counters"], "merged_equal_union": True,
+        "phases": sorted((merged.get("perf") or {}).get("phases", {})),
+        "exposition_lines": len(text.splitlines()),
+        "incident": {"trigger": manifest.get("trigger"), "files": manifest.get("files"),
+                     "unreachable": manifest.get("unreachable")},
+    }
+    reporter.close()
+    for obj in (*remotes, *servers, *svcs):
+        obj.close()
+    unregister_ambient(router_flight)
+    router_flight.close()
+    del engines, svcs, servers, remotes, router
+    shutil.rmtree(os.path.join(out_dir, "fleet_incidents"), ignore_errors=True)
+    shutil.rmtree(aot_dir, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return fields, launches
 
 
 # ----------------------------------------------------------------------
@@ -2686,8 +3218,8 @@ def main() -> int:
     # -- online serving at the main path's size: the trained linker frozen
     # -- into an index, batches, the service, the TF engine, the gates --------
     t0 = time.perf_counter()
-    serve, serve_captured = serve_phase(torch, strings_cuda, native, tf, linker, tf_linker,
-                                        df, out_dir)
+    serve, serve_captured, serve_ctx = serve_phase(torch, strings_cuda, native, tf, linker,
+                                                   tf_linker, df, out_dir)
     serve_launches = serve["batch_path"]["launches"]
     for (q_n, cap), args in serve_captured.items():
         for kernel in KERNELS:
@@ -2699,6 +3231,18 @@ def main() -> int:
                      f"({'first_name' if kernel == 'jaro_winkler' else 'city'})"))
     del serve_captured
     emit("serve", phase_s=time.perf_counter() - t0, **serve)
+
+    # -- the serving fleet over the serve phase's index: cold starts from the
+    # -- AOT sidecar, the wire, two replicas behind a router, federation ------
+    t0 = time.perf_counter()
+    fleet, fleet_launches = fleet_phase(torch, strings_cuda, native, tf, serve_ctx["engine"],
+                                        serve_ctx["idx_dir"], serve_ctx["qdf"],
+                                        serve_ctx["answers"], out_dir)
+    del serve_ctx
+    emit("fleet", phase_s=time.perf_counter() - t0, smi=smi, **fleet)
+    for r in rows:
+        if r["name"] in KERNELS:
+            r["fleet_path_launches"] = fleet_launches[r["name"]]
 
     # -- the approximate tier at bench.py's size: minhash-LSH blocking into
     # -- the main path's columns, parity with the CPU, the serving fallback
@@ -2744,4 +3288,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--spill-child"]:
         sys.exit(spill_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--aot-child"]:
+        sys.exit(aot_child(*sys.argv[2:7]))
     sys.exit(main())

@@ -10,7 +10,10 @@ nvcc) and the host library (``native.build``, g++). Each build that really
 runs a compiler reports here; a library already on disk is no build. The
 serving tier reads these totals where the reference reads its compile
 counter: ``LinkageService``'s compile-stall health signal,
-``PhaseProfile.compile_s`` and the zero-builds-after-warmup check.
+``PhaseProfile.compile_s`` and the zero-builds-after-warmup check. A
+library written from the AOT sidecar (serve/aot.py) runs no compiler: it
+counts apart, in ``aot_restores`` (:func:`note_aot_restore`), never as a
+build.
 
 Plain host-side Python, stdlib only.
 """
@@ -20,7 +23,7 @@ from __future__ import annotations
 import threading
 
 _LOCK = threading.Lock()
-_BUILDS = {"builds": 0, "seconds": 0.0}
+_BUILDS = {"builds": 0, "seconds": 0.0, "aot_restores": 0}
 
 
 def note_build(seconds: float) -> None:
@@ -41,3 +44,24 @@ def compile_requests() -> int:
     zero-builds-after-warmup checks read."""
     with _LOCK:
         return _BUILDS["builds"]
+
+
+def note_aot_restore(n: int = 1) -> None:
+    """Record ``n`` libraries restored from an AOT sidecar (verified bytes
+    written where the build looks for them; no compiler ran)."""
+    with _LOCK:
+        _BUILDS["aot_restores"] += int(n)
+
+
+def compile_stats() -> dict:
+    """The accounting split, under the reference's keys: ``requests`` and
+    ``compiles`` (both the library builds: the port has no compile cache),
+    ``aot_restores`` (libraries restored from a sidecar) and ``seconds``
+    (the builds' total seconds)."""
+    with _LOCK:
+        return {
+            "requests": _BUILDS["builds"],
+            "compiles": _BUILDS["builds"],
+            "aot_restores": _BUILDS["aot_restores"],
+            "seconds": _BUILDS["seconds"],
+        }

@@ -17,6 +17,8 @@ Plan grammar (comma-separated events)::
     segment@iter=10:kind=transient        error at a checkpointed-EM boundary
     emit_segment@seq=2:kind=kill          SIGKILL between a spill segment's
                                           bytes and its manifest commit
+    wire_response@kind=net_torn_frame     cut one wire reply mid-frame
+    wire_accept@kind=net_partition:delay_ms=500  drop + refuse conns 500ms
 
 The sites this package fires (SITES): ``resident_em`` (entering resident
 EM), ``segment`` (each checkpoint boundary of run_em_checkpointed),
@@ -31,12 +33,28 @@ The serving sites: ``serve_worker`` (the service's worker loop, outside
 a batch: a raise there kills the worker thread, which the watchdog
 restarts; coord batch), ``serve_batch`` (each batch dispatch; coord
 batch), ``swap_load`` and ``swap_validate`` (index hot-swap; coord
-generation). Each event is published as a ``fault`` event on the ambient
+generation). The wire sites (``WIRE_SITES``, fired by serve/wire.py):
+``wire_accept`` (each accepted connection), ``wire_request`` (each
+request frame read) and ``wire_response`` (each reply frame written).
+Each event is published as a ``fault`` event on the ambient
 channel of ``obs.events`` before it acts. ``iter`` /
 ``batch`` constrain when an event matches (omitted = any); ``times``
 bounds how often it fires (default 1), so a retried pass sees the fault
 once and then succeeds. The kill kind uses SIGKILL (no atexit, no finally
 blocks); the slow kind sleeps ``delay_ms`` (default 250) and returns.
+
+The ``net_*`` kinds model link failures rather than compute failures:
+
+    net_drop        the connection dies abruptly at the site (the server
+                    closes the socket with no reply; the client resolves
+                    every in-flight future as a shed)
+    net_delay       the link stalls delay_ms then continues, like kind=slow
+    net_torn_frame  a frame is cut mid-write (the length prefix promises
+                    more bytes than arrive); the reader rejects it without
+                    poisoning the connection state
+    net_partition   the host is unreachable for delay_ms: every live
+                    connection drops and new connects are refused until
+                    the partition heals
 """
 
 from __future__ import annotations
@@ -50,14 +68,21 @@ logger = logging.getLogger("splink_tpu_torch")
 
 ENV_VAR = "SPLINK_TPU_FAULTS"
 
-_KINDS = ("transient", "oom", "kill", "slow")
+_KINDS = (
+    "transient", "oom", "kill", "slow",
+    "net_drop", "net_delay", "net_torn_frame", "net_partition",
+)
 
 DEFAULT_SLOW_DELAY_MS = 250
 
 SITES = (
     "resident_em", "segment", "batch_fetch", "em_iteration", "emit_segment",
     "build_chunk", "serve_worker", "serve_batch", "swap_load", "swap_validate",
+    "wire_accept", "wire_request", "wire_response",
 )
+
+# The wire tier's injection points (module docstring).
+WIRE_SITES = ("wire_accept", "wire_request", "wire_response")
 
 
 class InjectedFault(RuntimeError):
@@ -70,6 +95,8 @@ class InjectedFault(RuntimeError):
         self.site = site
         self.kind = kind
         self.coords = dict(coords)
+        # net_partition reads delay_ms as the partition's duration: the
+        # wire server takes it off the caught fault to schedule the heal
         self.delay_ms = delay_ms
         what = ("injected device out of memory" if kind == "oom"
                 else f"injected {kind} failure")
@@ -150,7 +177,7 @@ class FaultPlan:
                 from ..obs.events import publish
 
                 publish("fault", site=site, kind=ev.kind, coords=dict(coords))
-                if ev.kind == "slow":
+                if ev.kind in ("slow", "net_delay"):
                     time.sleep(ev.delay_ms / 1000.0)
                     continue  # a stall completes; later events may still fire
                 if ev.kind == "kill":

@@ -22,12 +22,23 @@ from worker-thread death. The artifact format is splink_tpu's: an index
 either package saves loads in the other. ``python -m
 splink_tpu_torch.serve`` is the CLI.
 
-Not ported yet (ROADMAP.md Queue 1 item 13): the AOT executable sidecar
-(``serve/aot.py``), the replica router (``router.py``) and the multi-host
-wire tier (``wire.py``, ``remote.py``).
+More than one serving process on a model:
+
+  * :mod:`.aot`: ``QueryEngine(aot_dir=)`` / ``save_aot`` store the kernel
+    libraries beside the index, so a fresh replica warms up without a
+    compiler (``build --aot`` on the CLI);
+  * :mod:`.wire` / :mod:`.remote`: ``WireServer(LinkageService(engine))``
+    serves a replica over TCP and ``RemoteReplica("host:port")`` is its
+    client, with answers equal to the local ones bit for bit; the frames
+    are splink_tpu's, so either package talks to the other;
+  * :mod:`.router`: ``ReplicaRouter([...])`` routes around a broken
+    replica, fails over on a shed and hedges a slow primary;
+  * ``obs.fleet``: ``FleetAggregator`` merges the replicas' ``fleet_stats``
+    and ``FleetIncidentReporter`` writes incident bundles.
 """
 
 from .admission import CircuitBreaker, WaitEstimator
+from .aot import AotStore, AotStoreError
 from .bucketing import BucketPolicy, bucket_for
 from .engine import IndexSwapError, QueryEngine
 from .health import BROKEN, DEGRADED, HEALTHY, HealthMonitor
@@ -40,9 +51,14 @@ from .index import (
     build_index,
     load_index,
 )
+from .remote import RemoteReplica
+from .router import Replica, ReplicaRouter
 from .service import LinkageService, QueryResult
+from .wire import CorruptFrame, FrameTooLarge, TornFrame, WireError, WireServer
 
 __all__ = [
+    "AotStore",
+    "AotStoreError",
     "BucketPolicy",
     "bucket_for",
     "QueryEngine",
@@ -56,6 +72,14 @@ __all__ = [
     "load_index",
     "LinkageService",
     "QueryResult",
+    "Replica",
+    "ReplicaRouter",
+    "RemoteReplica",
+    "WireServer",
+    "WireError",
+    "FrameTooLarge",
+    "TornFrame",
+    "CorruptFrame",
     "HealthMonitor",
     "HEALTHY",
     "DEGRADED",

@@ -1,7 +1,7 @@
 """CLI: build, query and benchmark a serving index on the card.
 
     python -m splink_tpu_torch.serve build --model model.json --data ref.csv \
-        --out index_dir
+        --out index_dir [--aot]
     python -m splink_tpu_torch.serve query --index index_dir --data queries.csv
     python -m splink_tpu_torch.serve bench --index index_dir --data queries.csv
 
@@ -12,8 +12,10 @@ data and writes the frozen artifact. ``query`` prints one JSON line per
 query file through a LinkageService and prints latency percentiles,
 throughput and the kernel-library builds after warmup (which must be 0).
 Every command runs on ``cuda`` unless ``--device`` names another device.
-The reference's ``--aot`` sidecar is not ported (ROADMAP.md Queue 1 item
-13).
+``build --aot`` warms an engine over the new index and saves its AOT
+library sidecar to ``<out>/aot`` (serve/aot.py); ``query`` and ``bench``
+restore from ``<index>/aot`` when it is there, so a fresh process builds
+no library (a stale sidecar degrades to the ordinary build).
 """
 
 from __future__ import annotations
@@ -32,12 +34,31 @@ def _read_frame(path: str):
     return pd.read_csv(path)
 
 
+def _aot_dir(index_dir: str) -> str | None:
+    """The index's AOT sidecar directory when one is present."""
+    import os
+
+    d = os.path.join(index_dir, "aot")
+    return d if os.path.isdir(d) else None
+
+
 def _cmd_build(args) -> int:
     from ..linker import load_from_json
 
     df = _read_frame(args.data)
     linker = load_from_json(args.model, df=df, device=args.device)
     index = linker.export_index(args.out)
+    aot = None
+    if args.aot:
+        import os
+
+        from . import QueryEngine
+        from .aot import libraries
+
+        engine = QueryEngine(index, aot_dir=os.path.join(args.out, "aot"))
+        warm = engine.warmup()
+        engine.save_aot()
+        aot = {"libraries": len(libraries(engine.device)), **warm}
     print(json.dumps({
         "built": args.out,
         "n_rows": index.n_rows,
@@ -45,6 +66,7 @@ def _cmd_build(args) -> int:
         "n_approx_bands": 0 if index.approx is None else index.approx.bands,
         "n_lanes": index.n_lanes,
         "dtype": index.dtype,
+        **({"aot": aot} if aot else {}),
     }))
     return 0
 
@@ -52,7 +74,8 @@ def _cmd_build(args) -> int:
 def _cmd_query(args) -> int:
     from . import QueryEngine, load_index
 
-    engine = QueryEngine(load_index(args.index, device=args.device), top_k=args.k or None)
+    engine = QueryEngine(load_index(args.index, device=args.device), top_k=args.k or None,
+                         aot_dir=_aot_dir(args.index))
     engine.warmup()
     out = engine.query(_read_frame(args.data))
     for rec in out.to_dict(orient="records"):
@@ -71,7 +94,7 @@ def _cmd_bench(args) -> int:
               file=sys.stderr)
         return 2
     index = load_index(args.index, device=args.device)
-    engine = QueryEngine(index, top_k=args.k or None)
+    engine = QueryEngine(index, top_k=args.k or None, aot_dir=_aot_dir(args.index))
     warm = engine.warmup()
     c_warm = compile_requests()
     svc = LinkageService(engine, deadline_ms=args.deadline_ms)
@@ -91,6 +114,7 @@ def _cmd_bench(args) -> int:
         "queries": args.queries,
         "warmup_combinations": warm["combinations"],
         "warmup_compiles": warm["compiles"],
+        "warmup_aot_restored": warm["aot_restored"],
         "steady_state_compiles": compile_requests() - c_warm,
         **{k: round(v, 3) if isinstance(v, float) else v for k, v in summary.items()},
     }))
@@ -112,6 +136,8 @@ def main(argv=None) -> int:
     b.add_argument("--model", required=True, help="save_model_as_json output")
     b.add_argument("--data", required=True, help="reference csv/parquet")
     b.add_argument("--out", required=True, help="index output directory")
+    b.add_argument("--aot", action="store_true",
+                   help="also save the AOT library sidecar to <out>/aot")
     common(b)
     b.set_defaults(fn=_cmd_build)
 

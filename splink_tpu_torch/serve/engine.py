@@ -45,15 +45,23 @@ slot. ``warmup`` runs every shape once, which builds the kernel libraries
 if they are not built yet; after it no batch builds anything
 (``obs.metrics`` counts the builds).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the AOT executable sidecar (``aot_dir=``, ``save_aot``; Queue 1
-item 13) and the serve-time drift sketch (``sketch=True``; item 11).
+``aot_dir=`` names the engine's AOT sidecar (serve/aot.py): ``save_aot``
+stores the kernel libraries there after ``warmup``, and a fresh engine
+restores them in ``warmup`` (or at its first query), before its first
+kernel launch or query encode, so that it builds nothing. The sidecar is
+bound to the environment and to :meth:`QueryEngine._aot_binding`, the
+reference's keys: a sidecar saved under one bucket menu, top-k or scoring
+path does not serve another.
+
+Not ported yet (raises NotImplementedError naming ROADMAP.md Queue 1 item
+11): the serve-time drift sketch (``sketch=True``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 
 import numpy as np
@@ -257,10 +265,6 @@ class QueryEngine:
                  tf_adjust: bool | None = None):
         from .bucketing import BucketPolicy, bucket_for
 
-        if aot_dir is not None:
-            raise _not_ported(
-                "aot_dir (the AOT executable sidecar)", "serving, Queue 1 item 13"
-            )
         if sketch:
             raise _not_ported(
                 "sketch=True (the serve-time drift sketch)",
@@ -326,10 +330,91 @@ class QueryEngine:
         self._swap_mutex = lockwatch.new_lock("QueryEngine._swap_mutex")
         self._probes = None  # (query df, recorded answer arrays)
         self._generation = 0
+        # the AOT library sidecar (serve/aot.py): restored once, before the
+        # first kernel launch or query encode; save_aot() writes it
+        self._aot_dir = os.fspath(aot_dir) if aot_dir else None
+        self._aot_store = None  # memoised validated AotStore (or False)
+        self._aot_checked = False
+
+    # -- AOT library sidecar --------------------------------------------
+
+    # threadlint: holds=_swap_lock (warmup/query/save_aot enter locked)
+    def _aot_binding(self) -> dict:
+        """The strict-invalidation identity a sidecar is bound to, the
+        reference's keys (serve/aot.py adds the environment half)."""
+        index = self.index
+        return {
+            "index_state_hash": index.state_hash,
+            "index_fingerprint": index.content_fingerprint(),
+            "dtype": index.dtype,
+            "n_rules": len(index.rules),
+            "n_approx_bands": 0 if index.approx is None else index.approx.bands,
+            "top_k": self.top_k,
+            "brownout_top_k": self.brownout_top_k,
+            "query_buckets": list(self.policy.query_buckets),
+            "candidate_buckets": list(self.policy.candidate_buckets),
+            "fused": self.fused,
+            "sketch": False,  # the drift sketch is not ported
+            "tf": bool(self.tf_spec),
+        }
+
+    # threadlint: holds=_swap_lock (warmup/query/save_aot enter locked)
+    def _aot_ready_store(self):
+        """The validated sidecar store, memoised; None when no sidecar is
+        configured, present or valid (each invalidation emits one
+        ``serve_aot`` degradation event; the libraries then build from
+        sources)."""
+        if self._aot_store is None:
+            self._aot_store = False
+            if self._aot_dir is not None:
+                from .aot import AotStore
+
+                store = AotStore(self._aot_dir)
+                if store.validate(self._aot_binding(), self.device):
+                    self._aot_store = store
+        return self._aot_store or None
+
+    # threadlint: holds=_swap_lock (warmup/query enter locked)
+    def _aot_restore(self) -> int:
+        """Restore the sidecar's libraries once, before anything loads
+        them; a library already loaded or on disk is left as it is.
+        Returns how many were written."""
+        if self._aot_checked:
+            return 0
+        self._aot_checked = True
+        store = self._aot_ready_store()
+        return 0 if store is None else store.restore_all(self.device)
+
+    def restore_aot(self) -> int:
+        """Restore the sidecar's libraries now (``warmup`` and the first
+        query do it otherwise); returns how many were written. Idempotent:
+        a second call, or a library already loaded or on disk, writes
+        nothing."""
+        with self._swap_lock:
+            return self._aot_restore()
 
     def save_aot(self, directory=None) -> str:
-        raise _not_ported("save_aot (the AOT executable sidecar)",
-                          "serving, Queue 1 item 13")
+        """Store the kernel libraries this engine loads (the host library,
+        and the CUDA kernels on a card) as an AOT sidecar at ``directory``
+        (default: the engine's ``aot_dir``), bound to the index
+        fingerprint, settings hash, shape menu and environment. Call after
+        :meth:`warmup`. Returns the sidecar's menu path."""
+        from .aot import AotStore, build_libraries
+
+        with self._swap_lock:
+            directory = directory or self._aot_dir
+            if not directory:
+                raise ValueError(
+                    "no sidecar directory: pass save_aot(directory) or "
+                    "construct the engine with aot_dir="
+                )
+            if not self._warmed:
+                raise RuntimeError(
+                    "nothing to save: run warmup() first so the engine has "
+                    "loaded its kernel libraries"
+                )
+            return AotStore.write(directory, self._aot_binding(),
+                                  build_libraries(self.device), self.device)
 
     # -- dispatch -------------------------------------------------------
 
@@ -394,6 +479,7 @@ class QueryEngine:
         engine's device splits the batch's single result fetch, adding no
         host read to the device work."""
         with self._swap_lock, self._on_device():
+            self._aot_restore()
             k = self.brownout_top_k if degraded else self.top_k
             if degraded and not k:
                 raise RuntimeError(
@@ -516,13 +602,17 @@ class QueryEngine:
         the brown-out tier's (query-bucket, ``brownout_capacity``) shapes
         when it is enabled, on a batch whose rows are all padding (so
         every slot is invalid, yet every program and kernel launches at the
-        shape). The first run builds the kernel libraries if they are not
-        built; after warmup no batch builds anything. Returns
-        ``combinations``, ``compiles`` (library builds during warmup) and
-        ``compile_s`` (their seconds)."""
-        from ..obs.metrics import compile_totals
+        shape). With a valid AOT sidecar its libraries are restored first;
+        then the first run builds whatever library is still missing; after
+        warmup no batch builds anything. Returns ``combinations``,
+        ``compiles`` (library builds during warmup), ``compile_s`` (their
+        seconds) and ``aot_restored`` (libraries restored from the
+        sidecar)."""
+        from ..obs.metrics import compile_stats
 
-        b0, s0 = compile_totals()
+        with self._swap_lock:
+            s0 = compile_stats()
+            self._aot_restore()
         combos = self.policy.warmup_combinations()
         for q_pad, capacity in combos:
             self._warm_one(q_pad, capacity)
@@ -533,11 +623,12 @@ class QueryEngine:
             ]
             for q_pad, capacity in brownout_combos:
                 self._warm_one(q_pad, capacity, degraded=True)
-        b1, s1 = compile_totals()
+        s1 = compile_stats()
         return {
             "combinations": len(combos) + len(brownout_combos),
-            "compiles": b1 - b0,
-            "compile_s": s1 - s0,
+            "compiles": s1["compiles"] - s0["compiles"],
+            "compile_s": s1["seconds"] - s0["seconds"],
+            "aot_restored": s1["aot_restores"] - s0["aot_restores"],
         }
 
     def _warm_one(self, q_pad: int, capacity: int, degraded: bool = False) -> None:

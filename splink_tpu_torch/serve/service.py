@@ -32,12 +32,20 @@ ambient ``obs.events`` channel. Per-request latency feeds a bounded
 reservoir (:meth:`latency_summary`); sampled requests carry a trace
 (``obs.reqtrace``), every request feeds the SLO tracker (``obs.slo``), a
 flight recorder keeps recent span trees (``obs.flight``) and the kernel
-watch alerts on execute-latency regressions (``obs.kernelwatch``).
+watch alerts on execute-latency regressions (``obs.kernelwatch``). A
+non-zero ``obs_exposition_port`` serves :meth:`prometheus_samples` in the
+Prometheus text format (``obs.exposition``).
+
+Across processes (serve/wire.py, serve/remote.py, serve/router.py): a
+:class:`QueryResult` crosses the wire as :meth:`QueryResult.to_payload`,
+JSON whose floats round-trip exactly, so a remote answer equals the local
+one bit for bit; ``submit(trace=)`` takes a router's or wire server's
+trace context; :meth:`fleet_stats` is the mergeable export that
+``obs.fleet`` federates.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP.md Queue 1
-item 11): a non-zero ``obs_exposition_port`` / ``exposition_port`` (the
-Prometheus endpoint), ``telemetry_dir`` in the index's settings (run
-telemetry) and the drift monitor (``drift_snapshot``).
+item 11): ``telemetry_dir`` in the index's settings (run telemetry) and
+the drift monitor (``drift_snapshot``).
 """
 
 from __future__ import annotations
@@ -83,15 +91,56 @@ class QueryResult:
     degraded: bool = False
     approx: bool = False
     reason: str | None = None
-    # server-side split: time this request waited in the queue vs the
-    # engine wall it shared with its batch
+    # server-side split, stamped on every delivered result: time this
+    # request waited in the queue vs the engine wall it shared with its
+    # batch (queue_ms + execute_ms = the server's share of a wire RTT)
     queue_ms: float | None = None
     execute_ms: float | None = None
+
+    # -- wire round trip (serve/wire.py envelope "result" field) ---------
+    # JSON float serialisation is exact (repr round-trips every double), so
+    # a result that crosses the wire equals the local one bit for bit.
+
+    def to_payload(self) -> dict:
+        return {
+            "matches": [[uid, p] for uid, p in self.matches],
+            "n_candidates": int(self.n_candidates),
+            "shed": bool(self.shed),
+            "latency_ms": self.latency_ms,
+            "degraded": bool(self.degraded),
+            "approx": bool(self.approx),
+            "reason": self.reason,
+            "queue_ms": self.queue_ms,
+            "execute_ms": self.execute_ms,
+        }
+
+    @classmethod
+    def from_payload(cls, payload: dict) -> "QueryResult":
+        return cls(
+            matches=[(m[0], m[1]) for m in (payload.get("matches") or [])],
+            n_candidates=int(payload.get("n_candidates") or 0),
+            shed=bool(payload.get("shed")),
+            latency_ms=payload.get("latency_ms"),
+            degraded=bool(payload.get("degraded")),
+            approx=bool(payload.get("approx")),
+            reason=payload.get("reason"),
+            queue_ms=payload.get("queue_ms"),
+            execute_ms=payload.get("execute_ms"),
+        )
 
 
 class LinkageService:
     """Micro-batching query front-end over a :class:`~.engine.QueryEngine`
     (module docstring)."""
+
+    #: routers check this before forwarding a trace context (duck-typed
+    #: replicas without it keep the plain submit signature)
+    accepts_trace = True
+
+    #: every attempt this service resolves closes its span tree exactly
+    #: once: the contract the wire tier's span piggyback gates the result
+    #: reply on (serve/wire.py ``_SpanJoin``)
+    closes_traces = True
 
     def __init__(
         self,
@@ -116,13 +165,6 @@ class LinkageService:
         perf_window_s: float | None = None,
     ):
         settings = engine.index.settings
-        port = int(
-            exposition_port
-            if exposition_port is not None
-            else settings.get("obs_exposition_port", 0) or 0
-        )
-        if port:
-            raise _not_ported("a non-zero obs_exposition_port", _OBS_ITEM)
         if settings.get("telemetry_dir"):
             raise _not_ported("a non-empty 'telemetry_dir'", _OBS_ITEM)
         self.engine = engine
@@ -232,6 +274,23 @@ class LinkageService:
                 ),
                 alert_ratio=ratio,
             )
+        self._exposition = None
+        port = int(
+            exposition_port
+            if exposition_port is not None
+            else settings.get("obs_exposition_port", 0) or 0
+        )
+        if port:
+            try:
+                from ..obs.exposition import ExpositionServer
+
+                self._exposition = ExpositionServer(port)
+                self._exposition.add_source(name, self.prometheus_samples)
+                self._exposition.start()
+                logger.info("serve metrics exposition on %s", self._exposition.url)
+            except Exception as e:  # noqa: BLE001 - obs must not block serving
+                logger.warning("metrics exposition failed to start: %s", e)
+                self._exposition = None
         if autostart:
             self.start()
 
@@ -286,6 +345,9 @@ class LinkageService:
             self._inflight = []
         for entry in stragglers:
             self._resolve_shed(entry[1], "closed", entry[4])
+        if self._exposition is not None:
+            self._exposition.close()
+            self._exposition = None
         self._flight.close()  # unregister; the ring stays dump-able
 
     def __enter__(self) -> "LinkageService":
@@ -296,16 +358,22 @@ class LinkageService:
 
     # -- submission -----------------------------------------------------
 
-    def submit(self, record: dict, deadline_ms: float | None = None) -> Future:
+    def submit(self, record: dict, deadline_ms: float | None = None,
+               trace=None) -> Future:
         """Enqueue one query record; never raises. Sheds immediately
         (future resolves ``shed=True`` + degradation event) when the
         service is closed, the bounded queue is full, or ``deadline_ms`` is
         given and the estimated queue wait already exceeds it. A queued
         request's ``deadline_ms`` also rides into the batcher: lapsed
-        requests are shed at dispatch, never scored late. The service's
-        sampler decides whether the request is traced."""
+        requests are shed at dispatch, never scored late.
+
+        ``trace`` is an inbound :class:`~..obs.reqtrace.RequestTrace` (a
+        router's attempt context, or one a wire server carried across);
+        without one, the service's own sampler decides. The trace closes
+        exactly once, wherever this request's future resolves."""
         fut: Future = Future()
-        trace = self._tracer.maybe_start()
+        if trace is None:
+            trace = self._tracer.maybe_start()
         reason = None
         with self._nonempty:
             if self._stop and self._thread is None:
@@ -951,6 +1019,207 @@ class LinkageService:
         shed = bad."""
         return self._slo.snapshot()
 
+    def fleet_stats(self) -> dict:
+        """Mergeable, JSON-serialisable stats export for metric federation
+        (:mod:`..obs.fleet`; served over the wire as the ``stats``
+        envelope): counters add, the kernel watch's log2-bucket histograms
+        add element-wise with an exact ``sum`` and the SLO tracker's
+        time-bucketed ring adds per bucket index, so a merge of N hosts'
+        exports equals the single-tracker view of the union of their
+        observations bit for bit. There is no ``drift`` key: the drift
+        monitor is not ported."""
+        with self._lock:
+            counters = {
+                "served": self._served,
+                "shed": self._shed_count,
+                "batches": self._batches,
+                "timeouts": self._timeouts,
+                "degraded_served": self._degraded_served,
+                "worker_crashes": self._worker_crashes,
+                "brownout_episodes": self._brownout_episodes,
+            }
+        out = {
+            "replica": self.name,
+            "t_mono": time.monotonic(),
+            "health": self._health.state,
+            "breaker_state": self.breaker.state,
+            "index_generation": self.engine.generation,
+            "counters": counters,
+            "slo": self._slo.export(),
+        }
+        kw = self._kwatch
+        if kw is not None:
+            from ..obs.kernelwatch import HIST_EDGES
+
+            phases = {}
+            for phase in kw.phases():
+                hist = kw.histogram(phase)
+                if hist is None:
+                    continue
+                counts, _edges, total, n = hist
+                if n:
+                    phases[phase] = {
+                        "counts": [int(c) for c in counts],
+                        "sum": float(total),
+                        "n": int(n),
+                    }
+            out["perf"] = {"edges": list(HIST_EDGES), "phases": phases}
+        return out
+
     @property
     def flight_recorder(self):
         return self._flight
+
+    def prometheus_samples(self) -> list:
+        """The service's metric families for the text-exposition endpoint
+        (:mod:`..obs.exposition`), the reference's families without the
+        drift series. Reads the same locked snapshots the JSON endpoints
+        use; safe from the scrape thread."""
+        from ..obs.exposition import Sample, process_samples
+        from .health import health_rank
+
+        replica = {"replica": self.name}
+        summary = self.latency_summary()
+        with self._lock:
+            queue_len = len(self._queue)
+        out = [
+            Sample("splink_serve_served_total", summary["served"], replica,
+                   "counter", "Requests delivered with matches"),
+            Sample("splink_serve_shed_total", summary["shed"], replica,
+                   "counter", "Requests shed (all machine-readable reasons)"),
+            Sample("splink_serve_batches_total", summary["batches"], replica,
+                   "counter", "Engine batches dispatched"),
+            Sample("splink_serve_timeouts_total", summary["timeouts"],
+                   replica, "counter", "query(timeout=) cancellations"),
+            Sample("splink_serve_worker_crashes_total",
+                   summary["worker_crashes"], replica, "counter",
+                   "Worker deaths recovered by the watchdog"),
+            Sample("splink_serve_brownout_episodes_total",
+                   summary["brownout_episodes"], replica, "counter",
+                   "Brown-out episodes entered"),
+            Sample("splink_serve_queries_per_sec",
+                   summary["queries_per_sec"], replica, "gauge",
+                   "Lifetime served throughput"),
+            Sample("splink_serve_queue_fill",
+                   (queue_len / self.queue_depth) if self.queue_depth else 0.0,
+                   replica, "gauge", "Bounded-queue occupancy 0..1"),
+            Sample("splink_serve_health_rank",
+                   health_rank(self._health.state), replica, "gauge",
+                   "0 healthy / 1 degraded / 2 broken"),
+            Sample("splink_serve_breaker_open",
+                   1.0 if self.breaker.state == "open" else 0.0, replica,
+                   "gauge", "Circuit breaker open"),
+            Sample("splink_serve_index_generation",
+                   summary["index_generation"], replica, "gauge",
+                   "Committed hot-swaps"),
+        ]
+        for q in ("p50_ms", "p95_ms", "p99_ms"):
+            if q in summary:
+                out.append(Sample(
+                    "splink_serve_latency_ms", summary[q],
+                    {**replica, "quantile": q[:-3]}, "gauge",
+                    "Request latency quantiles (ms)",
+                ))
+        for phase, stats in self.phase_summary().items():
+            # "wall" totals the real phases: keep it out of the phase label
+            # so a sum over the label does not count it twice
+            metric = ("splink_serve_trace_wall_ms" if phase == "wall"
+                      else "splink_serve_phase_ms")
+            for q in ("p50_ms", "p99_ms"):
+                labels = {**replica, "quantile": q[:-3]}
+                if phase != "wall":
+                    labels["phase"] = phase
+                out.append(Sample(
+                    metric, stats[q], labels, "gauge",
+                    "Traced wall latency (ms)" if phase == "wall"
+                    else "Tail-latency attribution per phase (ms)",
+                ))
+        slo = self._slo.snapshot()
+        out.append(Sample("splink_serve_slo_objective", slo["objective"],
+                          replica, "gauge", "Delivery objective"))
+        for window, stats in slo["windows"].items():
+            labels = {**replica, "window_s": window}
+            if stats["hit_rate"] is not None:
+                out.append(Sample(
+                    "splink_serve_slo_hit_rate", stats["hit_rate"], labels,
+                    "gauge", "Rolling delivered/total per window",
+                ))
+            out.append(Sample(
+                "splink_serve_slo_burn_rate", stats["burn_rate"], labels,
+                "gauge", "Error-budget burn rate per window",
+            ))
+        if self._tracer.enabled:
+            trace = self._tracer.snapshot()
+            out.append(Sample(
+                "splink_serve_traces_sampled_total", trace["sampled"],
+                replica, "counter", "Requests sampled for tracing",
+            ))
+            for outcome, n in trace["outcomes"].items():
+                out.append(Sample(
+                    "splink_serve_traces_closed_total", n,
+                    {**replica, "outcome": outcome}, "counter",
+                    "Closed span trees by outcome",
+                ))
+        out.extend(self._perf_samples(replica))
+        out.extend(process_samples())
+        return out
+
+    def _perf_samples(self, replica: dict) -> list:
+        """Kernel-watch series: watch presence, the alert gauge, per-phase
+        anchor/EWMA/window-p95 gauges and the per-phase execute-time
+        distribution as a native Prometheus histogram with an exact
+        ``_sum``."""
+        from ..obs.exposition import HistogramSample, Sample
+
+        kw = self._kwatch
+        out = [Sample(
+            "splink_serve_perf_watch", 1.0 if kw is not None else 0.0, replica,
+            "gauge", "KernelWatch execute-latency regression monitor enabled",
+        )]
+        if kw is None:
+            return out
+        out.append(Sample(
+            "splink_serve_perf_alert", 1.0 if self._perf_alert_active else 0.0,
+            replica, "gauge", "Two-window execute-latency regression alert firing",
+        ))
+        for phase in kw.phases():
+            st = kw.phase_stats(phase)
+            if st is None:
+                continue
+            labels = {**replica, "phase": phase}
+            if st["anchor_ms"] is not None:
+                out.append(Sample(
+                    "splink_serve_perf_anchor_ms", st["anchor_ms"], labels,
+                    "gauge", "Post-warmup steady-state anchor (ms)",
+                ))
+            if st["ewma_ms"] is not None:
+                out.append(Sample(
+                    "splink_serve_perf_ewma_ms", st["ewma_ms"], labels,
+                    "gauge", "Smoothed execute-time trend (ms)",
+                ))
+            for window in ("short", "long"):
+                p95 = st[window]["p95_ms"]
+                if p95 is not None:
+                    out.append(Sample(
+                        "splink_serve_perf_p95_ms", p95,
+                        {**labels, "window": window}, "gauge",
+                        "Rolling-window p95 execute time (ms)",
+                    ))
+            hist = kw.histogram(phase)
+            if hist is not None:
+                # n can exceed sum(counts): past-last-edge observations live
+                # only in the +Inf bucket the renderer appends
+                counts, edges, total, n = hist
+                if n:
+                    cum = 0
+                    buckets = []
+                    for c, e in zip(counts, edges):
+                        cum += c
+                        buckets.append((e, cum))
+                    out.append(HistogramSample(
+                        name="splink_serve_phase_seconds", buckets=buckets,
+                        sum=total, count=n, labels=labels,
+                        help="Per-phase execute-time distribution "
+                             "(seconds; exact sum)",
+                    ))
+        return out

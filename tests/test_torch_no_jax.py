@@ -15,7 +15,9 @@ device sort-join tier (``device_blocking: "on"``) and ``build_spill_dir``
 with the spill-fed streamed EM. Then serving: ``export_index``, a saved and
 loaded artifact, a warmed QueryEngine, a LinkageService answering
 submitted records (the obs copies it builds included), and ``python -m
-splink_tpu_torch.serve`` (``--help``, ``build`` and ``query`` on the CPU).
+splink_tpu_torch.serve`` (``--help``, ``build`` and ``query`` on the CPU),
+and the serving fleet: a saved and restored AOT sidecar, a WireServer, a
+RemoteReplica behind a ReplicaRouter and a FleetAggregator's exposition.
 Last, the approximate tier (``approx_blocking`` with TF weighting) in
 training and in an index's serving fallback.
 """
@@ -61,7 +63,9 @@ for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "
              "serve", "serve.index", "serve.engine", "serve.service", "serve.bucketing",
              "serve.admission", "serve.health", "serve.__main__", "analysis.lockwatch",
              "obs.events", "obs.flight", "obs.reqtrace", "obs.slo", "obs.kernelwatch",
-             "obs.metrics", "approx", "approx.minhash", "approx.lsh"):
+             "obs.metrics", "approx", "approx.minhash", "approx.lsh", "serve.aot",
+             "serve.router", "serve.wire", "serve.remote", "obs.fleet", "obs.exposition",
+             "obs.tracer", "utils.envfp"):
     assert f"splink_tpu_torch.{want}" in names, want
 
 
@@ -155,6 +159,26 @@ with LinkageService(engine, deadline_ms=5.0) as svc:
     res = [svc.query(r, timeout=60) for r in df.head(5).to_dict(orient="records")]
 assert not any(r.shed for r in res) and any(r.matches for r in res)
 assert svc.latency_summary()["served"] == 5
+# the serving fleet: the AOT sidecar, the wire tier, the router, federation
+from splink_tpu_torch.obs.exposition import render_samples
+from splink_tpu_torch.obs.fleet import FleetAggregator
+from splink_tpu_torch.serve import RemoteReplica, ReplicaRouter, WireServer
+
+assert engine.save_aot(os.path.join(d, "aot")).endswith("aot_menu.json")
+aot_engine = QueryEngine(load_index(os.path.join(d, "idx"), device="cpu"), top_k=8,
+                         policy=BucketPolicy((16,), (64, 512)), aot_dir=os.path.join(d, "aot"))
+assert aot_engine.warmup()["compiles"] == 0 and aot_engine._aot_ready_store() is not None
+with LinkageService(engine, deadline_ms=5.0, name="fleet-a") as fsvc:
+    server = WireServer(fsvc).start()
+    remote = RemoteReplica(server.address, pool_size=1)
+    router = ReplicaRouter([remote, fsvc], hedge_ms=0)
+    recs = df.head(5).to_dict(orient="records")
+    got = [router.query(dict(r), timeout=60) for r in recs]
+    assert [g.matches for g in got] == [fsvc.query(dict(r), timeout=60).matches for r in recs]
+    text = render_samples(FleetAggregator(remotes=[remote]).prometheus_samples())
+    assert "splink_fleet_hosts 1" in text
+    remote.close()
+    server.close()
 # the CLI: build from a saved model, then query
 linker.save_model_as_json(os.path.join(d, "model.json"))
 df.to_csv(os.path.join(d, "ref.csv"), index=False)

@@ -170,6 +170,45 @@ def test_fault_plan_grammar_and_budget(pkg):
     empty.fire("anything", iter=0)
 
 
+NET_PLANS = [
+    "wire_response@kind=net_torn_frame",
+    "wire_accept@kind=net_partition:delay_ms=500",
+    "wire_request@request=3:kind=net_drop:times=2",
+    "wire_request@kind=net_delay:delay_ms=40, wire_response@request=7:kind=net_drop",
+    "wire_accept@conn=2:kind=net_drop, serve_batch@batch=1:kind=slow:delay_ms=10",
+]
+
+
+def _parsed(plan):
+    return [(ev.site, ev.kind, ev.match, ev.times, ev.delay_ms) for ev in plan.events]
+
+
+@pytest.mark.parametrize("spec", NET_PLANS)
+def test_net_plans_parse_alike_in_both_packages(spec):
+    """The network kinds and the wire sites: one plan string gives the same
+    events (site, kind, coordinates, budget, delay) in both packages, and
+    each fires the same way: a net_delay stalls and continues, the other
+    net kinds raise with their kind and the partition's duration."""
+    ref, port = ref_res.faults.FaultPlan.from_spec(spec), resilience.faults.FaultPlan.from_spec(spec)
+    assert _parsed(ref) == _parsed(port)
+    assert set(resilience.faults.WIRE_SITES) == set(ref_res.faults.WIRE_SITES)
+    assert set(resilience.faults.WIRE_SITES) <= set(resilience.faults.SITES)
+    for ev in list(port.events):
+        coords = dict(ev.match) or {"request": 1}
+        outcomes = []
+        for faults, plan in ((ref_res.faults, ref), (resilience.faults, port)):
+            try:
+                plan.fire(ev.site, **coords)
+                outcomes.append(None)
+            except faults.InjectedFault as e:
+                outcomes.append((e.kind, e.site, e.coords, e.delay_ms))
+        assert outcomes[0] == outcomes[1]
+        if ev.kind in ("net_delay", "slow"):
+            assert outcomes[0] is None
+        else:
+            assert outcomes[0][0] == ev.kind
+
+
 def test_active_plan_reads_env_then_settings(monkeypatch):
     monkeypatch.delenv("SPLINK_TPU_FAULTS", raising=False)
     assert resilience.active_plan({"fault_plan": "segment@iter=3"}).spec == "segment@iter=3"

@@ -283,9 +283,10 @@ def test_unported_engine_options_raise(trained, tmp_path):
     from splink_tpu_torch.serve import QueryEngine
 
     index = trained["float32"][1]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        QueryEngine(index, aot_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # the AOT sidecar is ported (Queue 1 item 13): aot_dir is accepted and
+    # save_aot asks for a warm engine first
+    assert QueryEngine(index, aot_dir=tmp_path)._aot_dir == str(tmp_path)
+    with pytest.raises(RuntimeError, match="warmup"):
         port_engine(index).save_aot(tmp_path)
     with pytest.raises(NotImplementedError, match="item 11"):
         QueryEngine(index, sketch=True)

@@ -437,8 +437,20 @@ def test_traced_requests_split_their_phases(engine, trained):
 
 
 def test_unported_service_options_raise(engine):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        LinkageService(engine, exposition_port=9100, autostart=False)
+    # a non-zero exposition port serves the Prometheus text (ported with
+    # obs/exposition.py); a free port is found first
+    import socket
+    import urllib.request
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    served = LinkageService(engine, exposition_port=port, autostart=False)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+            assert "splink_serve_served_total" in r.read().decode()
+    finally:
+        served.close()
     svc = LinkageService(engine, autostart=False)
     with pytest.raises(NotImplementedError, match="item 11"):
         svc.drift_snapshot()
