@@ -95,6 +95,23 @@ counted), restarts it, partitions B from its accept site (a
 (``wire_reconnect`` in the flight recorder), federates both replicas
 (merged counters and histograms equal to the union, both in the
 Prometheus text) and opens B's breaker for exactly one incident bundle.
+The ``obs`` phase, after ``fleet``: the main path's training and scoring
+again with ``telemetry_dir`` (parameters and scores bit-identical to the
+telemetry-off run, one ``em_iteration`` record per update equal to the
+history, ``pairs_blocked`` and ``gamma_histogram`` equal to the run's own,
+a memory snapshot at every stage within the card's memory, ``python -m
+splink_tpu_torch.obs summarize`` naming every stage; then telemetry off
+and on in turns), ``profile_dir`` on the parity subset (one trace per
+traced stage, both hand kernels' CUDA events in the gammas trace, a
+profiled artifact saved and loaded), the quality profile over the main
+path's 16.1M training pairs (equal to a host recount from the card's own
+gammas and probabilities, the serve index's fingerprint unchanged), the
+drift sketch over the serve phase's 10,000 queries (answers ``==`` the
+sketch-off engine's, drained counts ``==`` a host oracle, no
+synchronizing operation in its update), and the drift monitor in a
+LinkageService (a clean replay below the alert PSI; ``city`` shifted fires
+one ``drift_alert``, a flight dump in ``telemetry_dir`` and an alert naming
+``gamma:city``).
 Every phase prints one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
@@ -2477,6 +2494,459 @@ def fleet_phase(torch, strings_cuda, native, tf, engine, idx_dir, qdf, answers, 
 # The approximate tier: minhash-LSH blocking offline and served
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# Observability: run telemetry at the main path's size, profile_dir, the
+# quality profile, the serve-time drift sketch and the drift monitor
+# ----------------------------------------------------------------------
+
+OBS_TIMING_ROUNDS = 11  # 1,024-query batches timed with the sketch on and off, in turns
+OBS_DRIFT_WINDOW_S = 4.0  # the monitor's short window (the long one is 5x), on its own clock
+OBS_DRIFT_CHUNK = 256  # service records per drained window
+OBS_CLEAN_WINDOWS = 16
+OBS_SHIFT_WINDOWS = 8
+OBS_PROFILED_STAGES = {"gammas", "em"}  # the resident path's traced stages, overlap off
+OBS_KERNEL_NAMES = ("jaro_winkler_kernel", "levenshtein_kernel")  # their __global__ names
+
+
+def telemetry_record_checks(events, linker, n_pairs, total_bytes):
+    """The run record's gates; returns the stages, the per-stage peak device
+    bytes and the EM record count. ``total_bytes`` None (the CPU dry run)
+    skips the memory gates: the CPU takes no snapshots."""
+    result = linker._last_em_result
+    iters = [e for e in events if e["type"] == "em_iteration"]
+    n = int(result.n_updates)
+    if [e["iteration"] for e in iters] != list(range(1, n + 1)):
+        raise AssertionError(f"em_iteration records {[e['iteration'] for e in iters]}, "
+                             f"expected 1..{n}")
+    for e in iters:
+        it = e["iteration"]
+        m_h, u_h = result.m_history.astype(float), result.u_history.astype(float)
+        delta = float(max(np.max(np.abs(m_h[it] - m_h[it - 1])),
+                          np.max(np.abs(u_h[it] - u_h[it - 1]))))
+        if e["lam"] != float(result.lam_history[it]) or e["delta"] != delta:
+            raise AssertionError(f"em_iteration {it} differs from the history")
+    if iters[-1]["converged"] != bool(result.converged):
+        raise AssertionError("the last em_iteration's convergence flag differs")
+    snap = [e for e in events if e["type"] == "metrics"][-1]
+    if snap["counters"]["pairs_blocked"] != n_pairs:
+        raise AssertionError(f"pairs_blocked {snap['counters']['pairs_blocked']} != {n_pairs}")
+    G = linker._G
+    want = {}
+    for c, col in enumerate(linker.settings["comparison_columns"]):
+        levels = int(col["num_levels"])
+        want[col["col_name"]] = np.bincount(G[:, c].astype(np.int64) + 1,
+                                            minlength=levels + 1).tolist()
+    if snap["records"]["gamma_histogram"] != want:
+        raise AssertionError("gamma_histogram differs from a host bincount of the gammas")
+    stages = [e["name"] for e in events if e["type"] == "span" and e["kind"] == "stage"]
+    memory = [e for e in events if e["type"] == "memory"]
+    if total_bytes is None:
+        return stages, {}, len(iters)
+    if [e["stage"] for e in memory] != stages:
+        raise AssertionError(f"memory snapshots {[e['stage'] for e in memory]} != stages "
+                             f"{stages}")
+    peaks = {}
+    for e in memory:
+        for d in e["devices"]:
+            if not 0 < d["peak_bytes_in_use"] <= d["bytes_limit"] <= total_bytes:
+                raise AssertionError(f"stage {e['stage']}: memory snapshot {d}")
+        peaks[e["stage"]] = max(d["peak_bytes_in_use"] for d in e["devices"])
+    return stages, peaks, len(iters)
+
+
+def count_syncs(torch, fn):
+    """Synchronizing CUDA operations fn() makes (``set_sync_debug_mode``'s
+    warnings: reads back to the host, and host-to-device copies from
+    pageable memory, which wait for the stream), as {"file:line": count}
+    of the Python lines that made them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def kernel_ms(torch, fn, out_dir):
+    """Milliseconds of CUDA kernel time in one fn() call: the sum of the
+    kernel events of a torch.profiler trace (the device's busy time alone,
+    without the gaps where it waits for the host's launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(out_dir, "kernel_ms_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.unlink(path)
+    return sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+
+
+def trace_kernel_events(path):
+    """Names of the CUDA kernel events in one Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def obs_phase(torch, splink_tpu_torch, strings_cuda, native, tf, df, linker, sub, engine,
+              index, qdf, answers, out_dir):
+    """Returns (fields, launches of the sketching batch path). Runs on the
+    linker's device; on the CPU (a dry run of the phase's logic) the gates
+    that need the card (kernel launches, memory snapshots, kernel events in
+    a trace, device times) are skipped."""
+    import shutil
+
+    from splink_tpu_torch.gammas import PairContext, _spec_gamma
+    from splink_tpu_torch.obs import quality
+    from splink_tpu_torch.obs.events import read_events, register_ambient, unregister_ambient
+    from splink_tpu_torch.obs.quality import MATCH_PROBABILITY, capture_profile
+    from splink_tpu_torch.serve import LinkageService, QueryEngine, load_index
+
+    fields = {}
+    dev = linker.device
+    cuda = dev.type == "cuda"
+    total_bytes = torch.cuda.get_device_properties(dev).total_memory if cuda else None
+    n_pairs = linker._pairs.n_pairs
+
+    # -- run telemetry at the main path's size: training and scoring (no
+    # -- pandas frame), against the main path's telemetry-off run ----------
+    tel_dir = os.path.join(out_dir, "obs_telemetry")
+    shutil.rmtree(tel_dir, ignore_errors=True)
+
+    def train_and_score(telemetry: bool):
+        s = json.loads(json.dumps(SETTINGS))
+        if telemetry:
+            s.update(telemetry_dir=tel_dir, telemetry_memory=True)
+        t0 = time.perf_counter()
+        run = splink_tpu_torch.Splink(s, df=df, device=dev)
+        run.estimate_parameters()
+        with run._timed("score"):
+            p = run._score_batched(run._G)[0]
+        wall = time.perf_counter() - t0
+        if telemetry:
+            run._obs.finish()
+            run.close_telemetry()
+        return run, p, wall
+
+    zero_counts(strings_cuda, native, tf)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tl, p_on, tel_wall = train_and_score(True)
+    tel_launches = dict(strings_cuda.launches)
+    if cuda:
+        check_path_counts("the telemetry run", strings_cuda, native)
+    if tl.params.param_history != linker.params.param_history or \
+            tl.params.params != linker.params.params:
+        raise AssertionError("the telemetry run's parameters or history differ from the "
+                             "main path's")
+    main_p = linker._score_batched(linker._G)[0]
+    if not np.array_equal(p_on, main_p):
+        raise AssertionError("the telemetry run's scores differ from the main path's")
+    record = tl._obs.sink.path
+    events = read_events(record)
+    stages, peaks, n_records = telemetry_record_checks(events, tl, n_pairs, total_bytes)
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "splink_tpu_torch.obs", "summarize", record],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f"obs summarize exited {cli.returncode}: {cli.stderr[-2000:]}")
+    missing = [s for s in stages if f"\n{s} " not in cli.stdout]
+    if missing:
+        raise AssertionError(f"obs summarize does not name the stages {missing}")
+    # the same job with telemetry off and on, in turns after the gated run
+    walls = {"on": [tel_wall], "off": []}
+    for telemetry in (False, False, True):
+        walls["on" if telemetry else "off"].append(train_and_score(telemetry)[2])
+    compared = ("encode", "gamma_program", "blocking", "gammas", "em", "score")
+    fields["telemetry"] = {
+        "run": "estimate_parameters() and scoring, without the pandas frame",
+        "pairs": n_pairs, "em_updates": n_records, "launches": tel_launches,
+        "wall_s": tel_wall, "stage_s": tl.stage_seconds,
+        "wall_s_in_turns": walls, "median_wall_s_on": float(np.median(walls["on"])),
+        "median_wall_s_off": float(np.median(walls["off"])),
+        "stages_s_on": sum(tl.stage_seconds.get(s, 0.0) for s in compared),
+        "stages_s_off": sum(linker.stage_seconds.get(s, 0.0) for s in compared),
+        "stages_compared": compared, "record_bytes": os.path.getsize(record),
+        "record_events": len(events), "peak_device_bytes": peaks,
+        "summarize_s": cli_s, "parameters_bit_identical": True,
+    }
+    del tl, p_on, main_p
+
+    # -- profile_dir on the parity subset: one torch.profiler trace per
+    # -- device-heavy stage, the card's kernels in the gammas trace ----------
+    prof_dir = os.path.join(out_dir, "obs_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    pl = splink_tpu_torch.Splink(
+        dict(json.loads(json.dumps(SETTINGS)), profile_dir=prof_dir, overlap_blocking=False,
+             quality_profile=True), df=sub, device=dev)
+    pl.get_scored_comparisons()
+    prof_s = time.perf_counter() - t0
+    traces = {d: sorted(os.listdir(os.path.join(prof_dir, d))) for d in os.listdir(prof_dir)}
+    if set(traces) != OBS_PROFILED_STAGES or any(len(v) != 1 for v in traces.values()):
+        raise AssertionError(f"profile_dir traces {traces}")
+    kernel_events = {d: trace_kernel_events(os.path.join(prof_dir, d, v[0]))
+                     for d, v in traces.items()}
+    found = {k: sum(k in name for name in kernel_events["gammas"]) for k in OBS_KERNEL_NAMES}
+    if cuda and not kernel_events["gammas"]:
+        raise AssertionError("the gammas trace records no CUDA kernel event")
+    if cuda and not all(found.values()):
+        raise AssertionError(f"the gammas trace lacks a hand kernel: {found}")
+    fields["profile_dir"] = {
+        "rows": len(sub), "pairs": pl._pairs.n_pairs, "wall_s": prof_s,
+        "traces": traces, "kernel_events": {d: len(v) for d, v in kernel_events.items()},
+        "hand_kernel_events_in_gammas": found,
+        "trace_bytes": {d: os.path.getsize(os.path.join(prof_dir, d, v[0]))
+                        for d, v in traces.items()},
+    }
+    # a profiled artifact at this size: save, load, equal profile arrays
+    wide_dir = os.path.join(out_dir, "obs_profiled_index")
+    shutil.rmtree(wide_dir, ignore_errors=True)
+    small = pl.export_index(wide_dir)
+    again = load_index(wide_dir, device=dev)
+    for name in ("gamma_hist", "score_hist", "gamma_hist_matched", "score_hist_matched"):
+        if not np.array_equal(getattr(small.profile, name), getattr(again.profile, name)):
+            raise AssertionError(f"profile {name} differs after a save and a load")
+    if small.profile.to_meta() != again.profile.to_meta():
+        raise AssertionError("profile meta differs after a save and a load")
+    del pl, small, again
+
+    # -- the quality profile over the main path's 16.1M training pairs ----
+    fp0 = index.content_fingerprint()
+    linker._sync_device()
+    t0 = time.perf_counter()
+    profile = capture_profile(linker)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quality._column_table_stats(linker._table, linker.settings)
+    host_stats_s = time.perf_counter() - t0
+    G = linker._G
+    bins = profile.bins
+    width = max(profile.num_levels) + 1
+    fn = quality.make_profile_fn(tuple(profile.num_levels), bins)
+    params = linker._em_init()
+    chunk0 = torch.from_numpy(np.ascontiguousarray(G[:quality._PROFILE_CHUNK])).to(dev)
+    chunk_ms = cuda_ms(torch, lambda: fn(chunk0, params)) if cuda else None
+    chunk_kernel_ms = kernel_ms(torch, lambda: fn(chunk0, params), out_dir) if cuda else None
+    n_chunks = -(-len(G) // quality._PROFILE_CHUNK)
+    del chunk0
+    # the host recount from the card's own G and p
+    p = linker._score_batched(G)[0]
+    matched = p >= MATCH_PROBABILITY
+    sbin = np.clip((p * bins).astype(np.int64), 0, bins - 1)
+    want = {"gamma_hist": np.zeros((len(profile.columns), width), np.int64),
+            "gamma_hist_matched": np.zeros((len(profile.columns), width), np.int64),
+            "score_hist": np.bincount(sbin, minlength=bins),
+            "score_hist_matched": np.bincount(sbin[matched], minlength=bins)}
+    for c in range(len(profile.columns)):
+        g = G[:, c].astype(np.int64) + 1
+        want["gamma_hist"][c] = np.bincount(g, minlength=width)
+        want["gamma_hist_matched"][c] = np.bincount(g[matched], minlength=width)
+    for name, arr in want.items():
+        if not np.array_equal(getattr(profile, name), arr):
+            raise AssertionError(f"capture_profile {name} differs from the host recount")
+    index.profile = profile
+    index._content_fp = None
+    if index.content_fingerprint() != fp0:
+        raise AssertionError("attaching the profile changed the content fingerprint")
+    fields["quality_profile"] = {
+        "pairs": profile.n_pairs, "matched_pairs": profile.n_matched_pairs,
+        "capture_s": capture_s, "host_column_stats_s": host_stats_s,
+        "device_ms_per_chunk": chunk_ms, "kernel_ms_per_chunk": chunk_kernel_ms,
+        "chunks": n_chunks,
+        "device_ms": chunk_ms * n_chunks if cuda else None,
+        "host_recount_equal": True, "fingerprint_unchanged": True,
+        "null_rates": profile.null_rates,
+    }
+    del p, matched, sbin
+
+    # -- the drift sketch over the batch path: answers == the sketch-off
+    # -- engine's, drained counts == a host oracle ---------------------------
+    sk = QueryEngine(index, sketch=True)
+    sk.warmup()
+    if sk.sketch is None:
+        raise AssertionError("sketch=True over a profiled index made no sketch")
+    sk.drain_drift()
+    zero_counts(strings_cuda, native, tf)
+    outs = []
+    t0 = time.perf_counter()
+    for start in range(0, SERVE_QUERIES, SERVE_CHUNK):
+        outs.append(sk.query_arrays(qdf.iloc[start:start + SERVE_CHUNK]))
+    sk_wall = time.perf_counter() - t0
+    sk_launches = dict(strings_cuda.launches)
+    sk_variants = dict(strings_cuda.variant_launches)
+    n_batches = len(outs)
+    window = sk.drain_drift()
+    got = tuple(np.concatenate([o[i] for o in outs]) for i in range(4))
+    if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, answers)):
+        raise AssertionError("the sketching engine's answers differ from the sketch-off ones")
+    want_variants = {"jaro_winkler/u8/w1": 4 * n_batches, "levenshtein/u8/w1": 2 * n_batches}
+    if cuda and sk_variants != want_variants:
+        raise AssertionError(f"sketching batch path launched {sk_variants}, expected "
+                             f"{want_variants}")
+    top_p, top_rows, top_valid, _ = got
+    qi, ki = np.nonzero(top_valid & (top_p >= MATCH_PROBABILITY))
+    rows_q = index.encode_queries(qdf).packed[qi]
+    ctx = PairContext(index.layout, torch.from_numpy(rows_q.view(np.int32)),
+                      torch.from_numpy(index.packed[top_rows[qi, ki]].view(np.int32)))
+    gamma = np.stack([np.bincount(_spec_gamma(col, ctx, False).numpy().astype(np.int64) + 1,
+                                  minlength=width)
+                      for col in index.settings["comparison_columns"]])
+    sb = np.clip((top_p * bins).astype(np.int64), 0, bins - 1)
+    oracle = {"gamma": gamma,
+              "score": np.bincount(sb[top_valid & (top_p >= MATCH_PROBABILITY)], minlength=bins),
+              "score_all": np.bincount(sb[top_valid], minlength=bins)}
+    for name, arr in oracle.items():
+        if not np.array_equal(getattr(window, name), arr):
+            raise AssertionError(f"drained sketch {name} differs from the host oracle")
+    if window.counters["queries"] != SERVE_QUERIES:
+        raise AssertionError(f"sketch counted {window.counters['queries']} queries")
+    # a 1,024-query batch with and without the sketch, in turns; the
+    # sketch's update alone on the card
+    part = qdf.iloc[:SERVE_CHUNK]
+    on, off = [], []
+    for i in range(2 * OBS_TIMING_ROUNDS):
+        eng = (sk, engine)[(i + i // 2) % 2]
+        t0 = time.perf_counter()
+        eng.query_arrays(part)
+        (on if eng is sk else off).append((time.perf_counter() - t0) * 1e3)
+    b = sk.encode(part)
+    packed = torch.from_numpy(b.packed.view(np.int32)).to(dev)
+    tp, tr, tv = (torch.from_numpy(np.ascontiguousarray(a[:SERVE_CHUNK])).to(dev)
+                  for a in (top_p, top_rows, top_valid))
+    ref_packed = index.device_state()["packed"]
+
+    def update():
+        sk.sketch.update(packed, ref_packed, tr, tv, tp)
+
+    update_ms = cuda_ms(torch, update) if cuda else None
+    update_call_ms = cuda_ms(torch, update, device_only=False) if cuda else None
+    update_kernel_ms = kernel_ms(torch, update, out_dir) if cuda else None
+    # synchronizing operations: the sketch's update makes none (it reads
+    # nothing back and copies nothing from the host); a served batch's, and
+    # where they are
+    syncs = {}
+    if cuda:
+        count_syncs(torch, lambda: None)  # the debug mode's own first use
+        sites = {"sketch_update": count_syncs(torch, update),
+                 "query_arrays_1024_sketch_off": count_syncs(
+                     torch, lambda: engine.query_arrays(part)),
+                 "query_arrays_1024_sketch_on": count_syncs(
+                     torch, lambda: sk.query_arrays(part))}
+        syncs = {k: sum(v.values()) for k, v in sites.items()}
+        syncs["sites"] = sites
+        if syncs["sketch_update"] or (syncs["query_arrays_1024_sketch_on"]
+                                      != syncs["query_arrays_1024_sketch_off"]):
+            raise AssertionError(f"the drift sketch synchronizes: {syncs}")
+    sk.drain_drift()
+    fields["sketch"] = {
+        "queries": SERVE_QUERIES, "batches": n_batches, "wall_s": sk_wall,
+        "answers_equal_sketch_off": True, "host_oracle_equal": True,
+        "matched_winners": int(len(qi)), "launches": sk_launches,
+        "variant_launches": sk_variants,
+        "launches_per_batch": {k: v / n_batches for k, v in sk_launches.items()},
+        "median_batch_ms_on": float(np.median(on)), "median_batch_ms_off": float(np.median(off)),
+        "batch_ms_on": on, "batch_ms_off": off,
+        "update_device_ms": update_ms, "update_call_ms": update_call_ms,
+        "update_kernel_ms": update_kernel_ms,
+        "synchronizing_ops": syncs,
+        "counters": {k: v for k, v in window.counters.items() if k != "nulls"},
+    }
+    del packed, tp, tr, tv
+
+    # -- the drift monitor: a service over the sketching engine, on the
+    # -- monitor's own clock; a clean replay, then city shifted ----------------
+    class Capture:
+        def __init__(self):
+            self.events = []
+
+        def emit(self, type, **fields):
+            if type.startswith("drift_"):
+                self.events.append({"type": type, **fields})
+
+    flight_dir = os.path.join(out_dir, "obs_flight")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    saved = {k: index.settings.get(k) for k in ("telemetry_dir", "drift_window_s")}
+    index.settings.update(telemetry_dir=flight_dir, drift_window_s=OBS_DRIFT_WINDOW_S)
+    cap = Capture()
+    register_ambient(cap)
+    try:
+        svc = LinkageService(sk, deadline_ms=SERVE_COALESCE_MS, name="obs-drift")
+        clock = [0.0]
+        svc._drift._clock = lambda: clock[0]
+        rng = np.random.default_rng(SEED + 5)
+        cities = qdf["city"].dropna().to_numpy(object)
+
+        def replay(w, shift):
+            part = qdf.iloc[(w * OBS_DRIFT_CHUNK) % SERVE_QUERIES:][:OBS_DRIFT_CHUNK]
+            if shift:
+                part = part.assign(city=rng.choice(cities, len(part)))
+            futs = [svc.submit(r) for r in part.to_dict(orient="records")]
+            res = [f.result(timeout=60) for f in futs]
+            if any(r.shed for r in res):
+                raise AssertionError("a drift replay request was shed")
+            clock[0] += 1.0
+            svc._drift_tick(force=True)
+
+        t0 = time.perf_counter()
+        for w in range(OBS_CLEAN_WINDOWS):
+            replay(w, False)
+        clean = svc.drift_snapshot()
+        alert_psi = clean["alert_psi"]
+        clean_max = max(clean["short"]["max_psi"], clean["long"]["max_psi"])
+        if clean["alerts"] or not clean_max < alert_psi or cap.events and any(
+                e["type"] == "drift_alert" for e in cap.events):
+            raise AssertionError(f"a clean replay alerted or reached PSI {clean_max}")
+        for w in range(OBS_SHIFT_WINDOWS):
+            replay(OBS_CLEAN_WINDOWS + w, True)
+        shifted = svc.drift_snapshot()
+        drift_s = time.perf_counter() - t0
+        svc.close()
+    finally:
+        unregister_ambient(cap)
+        index.settings.update(saved)
+    alerts = [e for e in cap.events if e["type"] == "drift_alert"]
+    channels = [a["channel"] for a in shifted["alerts"]]
+    if len(alerts) != 1 or "gamma:city" not in channels or not shifted["alert_active"]:
+        raise AssertionError(f"city drift: {len(alerts)} drift_alert event(s), snapshot "
+                             f"alerts {channels}")
+    dumps = sorted(os.listdir(flight_dir)) if os.path.isdir(flight_dir) else []
+    if not dumps:
+        raise AssertionError("the drift alert dumped no flight recorder into telemetry_dir")
+    with open(os.path.join(flight_dir, dumps[-1])) as fh:
+        if not any(json.loads(line).get("type") == "drift_alert" for line in fh):
+            raise AssertionError("the flight dump holds no drift_alert record")
+    fields["drift_monitor"] = {
+        "window_s": OBS_DRIFT_WINDOW_S, "records_per_window": OBS_DRIFT_CHUNK,
+        "clean_windows": OBS_CLEAN_WINDOWS, "shifted_windows": OBS_SHIFT_WINDOWS,
+        "clean_max_psi": clean_max, "clean_channels": clean["short"]["channels"],
+        "alert_psi": alert_psi, "alert_channels": channels,
+        "shifted_short_channels": shifted["short"]["channels"],
+        "drift_window_events": sum(e["type"] == "drift_window" for e in cap.events),
+        "flight_dumps": dumps, "seconds": drift_s,
+    }
+    index.profile = None
+    index._content_fp = None
+    return fields, sk_launches
+
+
 APPROX_BASE = 50_000  # bench.py's n_base: 100,000 rows with the twins
 APPROX_PARITY_BASE = 5_000  # the corpus held on the card against the CPU
 APPROX_SERVE_POLICY = ((1024,), (256, 2048, 16384))
@@ -3238,11 +3708,22 @@ def main() -> int:
     fleet, fleet_launches = fleet_phase(torch, strings_cuda, native, tf, serve_ctx["engine"],
                                         serve_ctx["idx_dir"], serve_ctx["qdf"],
                                         serve_ctx["answers"], out_dir)
-    del serve_ctx
     emit("fleet", phase_s=time.perf_counter() - t0, smi=smi, **fleet)
     for r in rows:
         if r["name"] in KERNELS:
             r["fleet_path_launches"] = fleet_launches[r["name"]]
+
+    # -- observability: run telemetry at the main path's size, profile_dir,
+    # -- the quality profile, the drift sketch and the drift monitor ----------
+    t0 = time.perf_counter()
+    obs, obs_launches = obs_phase(torch, splink_tpu_torch, strings_cuda, native, tf, df, linker,
+                                  sub, serve_ctx["engine"], serve_ctx["engine"].index,
+                                  serve_ctx["qdf"], serve_ctx["answers"], out_dir)
+    del serve_ctx
+    emit("obs", phase_s=time.perf_counter() - t0, smi=smi, **obs)
+    for r in rows:
+        if r["name"] in KERNELS:
+            r["obs_path_launches"] = obs_launches[r["name"]]
 
     # -- the approximate tier at bench.py's size: minhash-LSH blocking into
     # -- the main path's columns, parity with the CPU, the serving fallback

@@ -492,13 +492,27 @@ def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int):
     order the host sink sees), each rule in chunks of
     ``min(batch_size, next power of two >= its total)`` positions. On the
     card a chunk's copy off the device overlaps the next chunks' decode.
-    Ends with one logger line of the emission's counts and rate."""
+    Ends with one logger line of the emission's counts and rate and one
+    ambient ``blocking_device`` event with the reference's fields (the
+    copy ring's occupancy is not sampled: those two fields are null)."""
+    from .obs.events import publish
+
     if plan.n_candidates == 0:
         return
     ctx = _emission_context(plan, batch_size)
     chunks = _Chunks(plan.device, ctx["compact_dev"])
-    stats = {"chunks": 0, "pairs": 0, "candidates": 0}
+    stats = {"chunks": 0, "submitted": 0, "pairs": 0, "candidates": 0,
+             "fill_sum": 0.0, "completed": False}
+    per_rule: dict[int, list] = {}
     t0 = time.perf_counter()
+
+    def account(rr, i):
+        stats["chunks"] += 1
+        stats["pairs"] += len(i)
+        pr = per_rule.setdefault(rr, [0, 0])
+        pr[0] += 1
+        pr[1] += len(i)
+
     try:
         for r, rp in enumerate(plan.rules):
             if rp.total == 0:
@@ -509,23 +523,38 @@ def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int):
                 tag, out = _emit_chunk(plan, r, ctx, bs, p0, p1, digest=False)
                 chunks.submit(r, tag, out)
                 stats["candidates"] += p1 - p0
+                stats["submitted"] += 1
+                stats["fill_sum"] += (p1 - p0) / ctx["batch_size"]
                 for rr, (i, j, _) in chunks.ready():
-                    stats["chunks"] += 1
-                    stats["pairs"] += len(i)
+                    account(rr, i)
                     yield rr, i, j
         for rr, (i, j, _) in chunks.drain():
-            stats["chunks"] += 1
-            stats["pairs"] += len(i)
+            account(rr, i)
             yield rr, i, j
+        stats["completed"] = True
     finally:
         # the consumer may abandon the generator mid-stream
         chunks.clear()
         elapsed = max(time.perf_counter() - t0, 1e-9)
-        logger.info("%s", format_stage_log(
-            "blocking_device", rules=len(plan.rules), chunks=stats["chunks"],
-            pairs=stats["pairs"], candidates=stats["candidates"],
-            elapsed_s=round(elapsed, 4), pairs_per_sec=round(stats["pairs"] / elapsed),
-            chunk_budget=ctx["batch_size"], device=str(plan.device)))
+        fields = dict(
+            rules=len(plan.rules), chunks=stats["chunks"], pairs=stats["pairs"],
+            candidates=stats["candidates"], elapsed_s=round(elapsed, 4),
+            pairs_per_sec=round(stats["pairs"] / elapsed),
+            chunk_budget=ctx["batch_size"],
+        )
+        logger.info("%s", format_stage_log("blocking_device", **fields,
+                                           device=str(plan.device)))
+        try:
+            publish(
+                "blocking_device", **fields,
+                mean_chunk_fill=round(stats["fill_sum"] / (stats["submitted"] or 1), 4),
+                d2h_occupancy_mean=None, d2h_occupancy_max=None,
+                d2h_depth=_D2H_DEPTH, completed=stats["completed"],
+                per_rule=[{"rule": plan.rules[r].rule, "chunks": c, "pairs": p}
+                          for r, (c, p) in sorted(per_rule.items())],
+            )
+        except Exception as e:  # noqa: BLE001 - telemetry must never break emission
+            logger.debug("blocking_device telemetry publish failed: %s", e)
 
 
 def device_block_rules(settings: dict, table: EncodedTable, n_left: int | None, sink,
@@ -624,8 +653,10 @@ def emit_pairs_sharded(plan: DeviceBlockPlan, store, batch_size: int, n_shards: 
     resumed run commits the same segments. The fault site ``emit_segment``
     fires between a segment's byte append and its manifest commit.
 
-    Returns a stats dict (segments, skipped, pairs, exhausted). The caller
+    Returns a stats dict (segments, skipped, pairs, exhausted) and
+    publishes it as one ambient ``blocking_spill`` event. The caller
     finalizes the store."""
+    from .obs.events import publish
     from .resilience import faults as _faults
 
     if fault_plan is None:
@@ -684,11 +715,16 @@ def emit_pairs_sharded(plan: DeviceBlockPlan, store, batch_size: int, n_shards: 
     finally:
         chunks.clear()
         elapsed = max(time.perf_counter() - t0, 1e-9)
-        logger.info("%s", format_stage_log(
-            "blocking_spill", rules=len(plan.rules), shards=n_shards,
-            segments=stats["segments"], skipped=stats["skipped"], pairs=stats["pairs"],
+        fields = dict(
+            rules=len(plan.rules), shards=n_shards, segments=stats["segments"],
+            skipped=stats["skipped"], pairs=stats["pairs"],
             pairs_per_sec=round(stats["pairs"] / elapsed), chunk_budget=ctx["batch_size"],
-            budget=budget, exhausted=stats["exhausted"], elapsed_s=round(elapsed, 4)))
+            budget=budget, exhausted=stats["exhausted"], elapsed_s=round(elapsed, 4))
+        logger.info("%s", format_stage_log("blocking_spill", **fields))
+        try:
+            publish("blocking_spill", **fields)
+        except Exception as e:  # noqa: BLE001 - telemetry must never break emission
+            logger.debug("blocking_spill telemetry publish failed: %s", e)
     return stats
 
 

@@ -14,11 +14,15 @@ with a host hook after every update that guards against non-finite values
 ``checkpoint_every`` updates. The reference needs an ``io_callback``
 inside its compiled ``while_loop`` for that; here the loop is Python, so
 the hook is a plain call.
+
+``telemetry=`` (an ``obs.runtime.RunContext``) streams one ``em_update``
+per update through the same per-update hook. Without it no hook is
+installed and the loop reads nothing it would not read anyway; with it the
+hook only reads, so the trajectory is bit-identical either way.
 """
 
 from __future__ import annotations
 
-import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -34,8 +38,6 @@ from .models.fellegi_sunter import (
     sufficient_stats,
     update_params,
 )
-
-logger = logging.getLogger("splink_tpu_torch")
 
 
 class EMResult(NamedTuple):
@@ -58,6 +60,7 @@ def run_em(
     weights=None,
     compute_ll: bool = False,
     on_update=None,
+    telemetry=None,
 ) -> EMResult:
     """Run EM to convergence on the device ``G`` lives on.
 
@@ -69,7 +72,10 @@ def run_em(
     and before its values enter the histories (``ll_pre``: the log
     likelihood under the pre-update parameters, None without compute_ll).
     It reads and never writes, so the trajectory is the same with or
-    without it; an exception it raises ends the run."""
+    without it; an exception it raises ends the run. ``telemetry`` adds one
+    ``em_update`` record per update on top of it."""
+    if telemetry is not None:
+        on_update = _with_telemetry(on_update, telemetry, compute_ll)
     C, L = init.m.shape
     dtype = init.m.dtype
     dev = init.m.device
@@ -121,6 +127,20 @@ def run_em(
     )
 
 
+def _with_telemetry(on_update, telemetry, compute_ll: bool):
+    """``on_update`` followed by one ``telemetry.em_update`` per update,
+    from host copies of the new parameters."""
+
+    def hook(it, new, ll_pre, converged):
+        if on_update is not None:
+            on_update(it, new, ll_pre, converged)
+        lam, m, u = (t.cpu().numpy() for t in new)
+        telemetry.em_update(int(it), float(lam), m, u,
+                            float(ll_pre) if compute_ll else None, converged)
+
+    return hook
+
+
 class EMNumericsError(RuntimeError):
     """A non-finite value entered the EM trajectory.
 
@@ -166,6 +186,7 @@ def run_em_checkpointed(
     resume_checkpoint=None,
     fault_plan=None,
     on_segment=None,
+    telemetry=None,
 ) -> EMResult:
     """:func:`run_em` with an atomic checkpoint every ``checkpoint_every``
     updates (splink_tpu em.run_em_checkpointed).
@@ -181,7 +202,12 @@ def run_em_checkpointed(
     (``resume=True``) from its last boundary.
 
     Histories are host numpy arrays in run_em's layout (index i = params
-    before update i+1; ll index i = log likelihood under params i)."""
+    before update i+1; ll index i = log likelihood under params i).
+
+    ``telemetry`` streams one ``em_update`` per update through the same
+    hook, after the numerics guard (a non-finite update publishes an
+    ``em_numerics`` event and never reaches the stream)."""
+    from .obs.events import publish
     from .resilience.checkpoint import EMCheckpoint, load_checkpoint, save_checkpoint
 
     if resume and checkpoint_dir is None:
@@ -267,7 +293,8 @@ def run_em_checkpointed(
     start = done
     remaining = max_iterations - done
     hook_needed = (checkpoint_dir is not None or on_segment is not None
-                   or (fault_plan is not None and bool(fault_plan)))
+                   or (fault_plan is not None and bool(fault_plan))
+                   or telemetry is not None)
 
     def hook(it_rel, new, ll_pre, conv):
         it = start + int(it_rel)
@@ -283,7 +310,7 @@ def run_em_checkpointed(
                 checkpoint_dir=str(checkpoint_dir) if checkpoint_dir is not None else None,
                 last_checkpoint_iteration=last_saved["iteration"],
             )
-            logger.warning("em_numerics: %s", info)
+            publish("em_numerics", **info)
             where = (f"; last checkpoint at iteration {last_saved['iteration']} in "
                      f"{checkpoint_dir}" if last_saved["iteration"] is not None else "")
             raise EMNumericsError(
@@ -294,6 +321,8 @@ def run_em_checkpointed(
         lam_h[it], m_h[it], u_h[it] = lam, m, u
         if compute_ll:
             ll_h[it - 1] = ll
+        if telemetry is not None:
+            telemetry.em_update(it, float(lam), m, u, ll if compute_ll else None, conv)
         if conv or it == max_iterations or it % checkpoint_every == 0:
             # durability first: an injected kill at this boundary must find
             # the boundary's own update already on disk

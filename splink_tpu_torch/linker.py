@@ -42,6 +42,14 @@ no CUDA device exists; it never carries on quietly on the CPU. Pass
 ``device="cpu"`` to run the plain PyTorch versions on the CPU. Settings
 that need a module not ported yet raise NotImplementedError naming its
 ROADMAP.md item.
+
+Observability (obs/, utils/profiling.py), as in the reference: every stage
+runs under a ``StageTimer`` of this linker's run scope (``run_id``), which
+also feeds ``stage_seconds``; ``telemetry_dir`` writes the run's JSONL
+record (stage spans with device-memory snapshots, one EM record per update,
+counters, gamma histograms, resilience events); ``profile_dir`` writes a
+``torch.profiler`` trace of each device-heavy stage; every fit logs the EM
+identifiability warnings (``obs.quality.em_diagnostics``).
 """
 
 from __future__ import annotations
@@ -50,7 +58,6 @@ import contextlib
 import copy
 import logging
 import os
-import time
 import warnings
 from typing import Callable
 
@@ -70,6 +77,7 @@ from .em import (
     score_pairs_with_logits,
 )
 from .gammas import GammaProgram
+from .obs.runtime import RunContext
 from .params import Params, fsparams_from_numpy, load_params_from_json
 from .settings import comparison_column_name, complete_settings_dict
 from .term_frequencies import (
@@ -79,6 +87,7 @@ from .term_frequencies import (
     tf_fold_spec,
     tf_log_table,
 )
+from .utils.profiling import StageTimer, begin_run
 
 logger = logging.getLogger("splink_tpu_torch")
 
@@ -106,10 +115,43 @@ def _check_ported_settings(settings: dict) -> None:
     """Raise for every setting that needs a module not ported yet."""
     for key, item in (
         ("mesh", "multi-GPU, Queue 1 item 7"),
-        ("telemetry_dir", "observability, Queue 1 item 11"),
     ):
         if settings.get(key):
             raise _not_ported(f"a non-empty {key!r}", item)
+
+
+def _gamma_histograms(settings, G, weights=None, chunk: int = 1 << 22,
+                      G_dev=None) -> dict:
+    """Per-comparison-column gamma-level histogram (telemetry record):
+    column name -> [count at level -1 (null), level 0, ..., level L-1].
+    ``G`` is either the per-pair gamma matrix or, with ``weights`` (the
+    pattern-count vector), the pattern matrix. Chunked so the int64
+    temporaries stay O(chunk). ``G_dev``, the resident device copy of
+    ``G``, counts on its device instead (one read of each column's counts),
+    so a resident job does not pay a host pass over its pairs."""
+    cols = settings["comparison_columns"]
+    if G_dev is not None:
+        out = {}
+        for c, col in enumerate(cols):
+            levels = int(col["num_levels"])
+            g = torch.clamp(G_dev[:, c].to(torch.int64) + 1, 0, levels)
+            counts = torch.bincount(g, minlength=levels + 1)[: levels + 1]
+            out[comparison_column_name(col)] = [int(v) for v in counts.cpu()]
+        return out
+    acc = [np.zeros(int(col["num_levels"]) + 1, np.float64) for col in cols]
+    for s in range(0, len(G), chunk):
+        Gc = G[s : s + chunk]
+        w = weights[s : s + chunk] if weights is not None else None
+        for c, col in enumerate(cols):
+            levels = int(col["num_levels"])
+            g = np.asarray(Gc[:, c], np.int64) + 1  # -1 (null) -> bin 0
+            acc[c] += np.bincount(
+                np.clip(g, 0, levels), weights=w, minlength=levels + 1
+            )[: levels + 1]
+    return {
+        comparison_column_name(col): [int(v) for v in acc[c]]
+        for c, col in enumerate(cols)
+    }
 
 
 class Splink:
@@ -143,6 +185,11 @@ class Splink:
         self._n_left_released: int | None = None
         self.save_state_fn = save_state_fn
         self._check_args()
+        # the run's observability scope: stage timings and the profiler
+        # target keyed by this run's id; telemetry live iff telemetry_dir
+        # is set (disabled, EM installs no per-update hook)
+        self._obs = RunContext.from_settings(self.settings)
+        begin_run(self._obs.run_id, self.settings.get("profile_dir") or None)
         self._table: EncodedTable | None = None
         self._pairs: PairIndex | None = None
         self._G: np.ndarray | None = None
@@ -192,14 +239,28 @@ class Splink:
                 "e.g. Splink(settings, df_l=first, df_r=second)"
             )
 
-    @contextlib.contextmanager
-    def _timed(self, stage: str):
-        """Record the stage's wall seconds, the device's work included."""
-        t0 = time.perf_counter()
-        yield
+    @property
+    def run_id(self) -> str:
+        """This linker's telemetry and profiling run id (the key for
+        ``utils.profiling.stage_timings(run=...)`` and the suffix of the
+        run's telemetry file name)."""
+        return self._obs.run_id
+
+    def _sync_device(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.stage_seconds[stage] = time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def _timed(self, stage: str):
+        """A StageTimer of this linker's run scope: records the stage's wall
+        seconds, the device's work included, in ``stage_seconds`` and the
+        run's timings, writes its profiler trace under ``profile_dir`` and,
+        with telemetry, emits its span and a device-memory snapshot."""
+        timer = StageTimer(stage, run=self._obs.run_id, telemetry=self._obs,
+                           sync=self._sync_device)
+        with timer:
+            yield
+        self.stage_seconds[stage] = timer.elapsed
 
     @property
     def _n_left(self) -> int | None:
@@ -278,6 +339,7 @@ class Splink:
                     self._table = encode_table(self.df, self.settings)
                 else:
                     self._table = concat_tables(self.df_l, self.df_r, self.settings)
+            self._obs.count("rows_encoded", int(self._table.n_rows))
         return self._table
 
     def _ensure_pairs(self) -> PairIndex:
@@ -315,6 +377,7 @@ class Splink:
                     self._pairs = pairs
                     logger.info("blocking produced %d candidate pairs (spill store)",
                                 pairs.n_pairs)
+                    self._obs.count("pairs_blocked", int(pairs.n_pairs))
                     clear_key_code_cache(table)
                     return self._pairs
                 from .utils.logging_utils import warn_degraded
@@ -329,6 +392,14 @@ class Splink:
                     device=self.device,
                 )
             logger.info("blocking produced %d candidate pairs", self._pairs.n_pairs)
+            self._obs.count("pairs_blocked", int(self._pairs.n_pairs))
+            if self._obs.enabled:
+                # block-size skew rides the still-warm key-code cache,
+                # cleared just below
+                from .blocking import block_size_stats
+
+                self._obs.record("largest_blocks",
+                                 block_size_stats(self.settings, table, self._n_left))
             self._maybe_spill_pairs()
             if stream is not None:
                 self._finish_overlap(stream)
@@ -648,8 +719,16 @@ class Splink:
         seen = counts > 0
         logger.info("pattern-compressed EM: %d pairs -> %d distinct gamma patterns",
                     int(counts.sum()), int(seen.sum()))
+        self._obs.count("pairs_gamma_scored", int(counts.sum()))
+        self._obs.gauge("gamma_patterns_distinct", int(seen.sum()))
         self._last_em_result = None
+        # cheap here (the pattern matrix is small); feeds telemetry and the
+        # EM diagnostics' level-support evidence
+        hist = _gamma_histograms(self.settings, patterns, weights=counts)
+        if self._obs.enabled:
+            self._obs.record("gamma_histogram", hist)
         self._run_em_resident_weighted(patterns[seen], counts[seen], compute_ll)
+        self._emit_em_diagnostics(hist)
 
     def stream_tf_adjusted_comparisons(self, compute_ll: bool = False):
         """Streaming term-frequency adjustment, for outputs too large for one
@@ -733,6 +812,7 @@ class Splink:
                 yield df[lead + rest]
         finally:
             self._P_virtual = None
+            self._obs.finish()
 
     # ------------------------------------------------------------------
     # Public API
@@ -759,9 +839,12 @@ class Splink:
         """Score using the m/u values in the settings (or a loaded model),
         without running EM."""
         if self._use_pattern_pipeline():
-            return self._concat_chunks(self._stream_pattern_chunks())
-        df_e = self._build_df_e(self._ensure_gammas())
-        self._G_dev = None  # release the device copy once scoring is done
+            df_e = self._concat_chunks(self._stream_pattern_chunks())
+        else:
+            df_e = self._build_df_e(self._ensure_gammas())
+            self._G_dev = None  # release the device copy once scoring is done
+        self._obs.count("pairs_scored_output", len(df_e))
+        self._obs.finish()
         return df_e
 
     def estimate_parameters(
@@ -807,6 +890,7 @@ class Splink:
         finally:
             self._ckpt_dir_arg = None
             self._ckpt_resume = False
+            self._obs.finish()
         return self.params
 
     def get_scored_comparisons(self, compute_ll: bool = False):
@@ -822,11 +906,13 @@ class Splink:
             self._run_em_patterns(compute_ll)
             df_e = self._concat_chunks(self._stream_pattern_chunks())
             self._P_virtual = None
-            return df_e
-        G = self._ensure_gammas()
-        self._run_em(G, compute_ll)
-        df_e = self._build_df_e(G)
-        self._G_dev = None
+        else:
+            G = self._ensure_gammas()
+            self._run_em(G, compute_ll)
+            df_e = self._build_df_e(G)
+            self._G_dev = None
+        self._obs.count("pairs_scored_output", len(df_e))
+        self._obs.finish()
         return df_e
 
     def _em_init(self):
@@ -841,9 +927,20 @@ class Splink:
         from .resilience import active_plan, is_oom
         from .utils.logging_utils import warn_degraded
 
+        self._obs.count("pairs_gamma_scored", len(G))
         self._last_em_result = None
+        # the gamma histogram doubles as the EM diagnostics' level-support
+        # evidence; cheap in the resident regime, skipped for a streamed
+        # job with telemetry off (diagnostics then omit support counts)
+        hist = None
+        if self._obs.enabled or len(G) <= int(self.settings["max_resident_pairs"]):
+            G_dev = self._G_dev if self._G_dev is not None and G is self._G else None
+            hist = _gamma_histograms(self.settings, G, G_dev=G_dev)
+            if self._obs.enabled:
+                self._obs.record("gamma_histogram", hist)
         if len(G) > int(self.settings["max_resident_pairs"]):
             self._run_em_streamed(G, compute_ll)
+            self._emit_em_diagnostics(hist)
             return
         # the resident attempt may replay completed updates into
         # self.params (checkpoint boundaries, save_state_fn) before it OOMs;
@@ -860,6 +957,7 @@ class Splink:
             warn_degraded("resident_em", "streamed_em", f"{type(e).__name__}: {e}",
                           pairs=len(G), device=str(self.device))
             self._run_em_streamed(G, compute_ll)
+        self._emit_em_diagnostics(hist)
 
     def _run_em_fused(self, G_dev, weights, compute_ll: bool) -> None:
         """Resident EM: the whole run in one run_em call, one update per
@@ -874,23 +972,36 @@ class Splink:
             compute_ll=compute_ll,
         )
         ckpt_dir, resume, interval = self._checkpoint_config()
+        tel = self._obs if self._obs.enabled else None
         with self._timed("em"):
+            # inside the stage span, so em_begin takes it as the parent of
+            # every em_iteration span
+            if tel is not None:
+                tel.em_begin("fused", *(t.cpu().numpy() for t in init))
             if ckpt_dir is not None:
                 converged = self._run_em_fused_checkpointed(
                     G_dev, init, max_iterations, em_kwargs, ckpt_dir, resume,
                     interval, compute_ll,
                 )
             elif self.save_state_fn is None:
-                result = run_em(G_dev, init, max_iterations=max_iterations, **em_kwargs)
+                result = run_em(G_dev, init, max_iterations=max_iterations,
+                                telemetry=tel, **em_kwargs)
                 self._replay_history(result, compute_ll)
                 converged = result.converged
             else:
                 converged = False
                 params = init
-                for _ in range(max_iterations):
+                for k in range(max_iterations):
                     result = run_em(G_dev, params, max_iterations=1, **em_kwargs)
                     params = result.params
                     self._replay_history(result, compute_ll)
+                    if tel is not None:
+                        tel.em_update(
+                            k + 1, float(result.lam_history[1]), result.m_history[1],
+                            result.u_history[1],
+                            float(result.ll_history[0]) if compute_ll else None,
+                            bool(result.converged),
+                        )
                     self.save_state_fn(self.params, self.settings)
                     if result.converged:
                         converged = True
@@ -926,7 +1037,8 @@ class Splink:
             G_dev, init, max_iterations=max_iterations, checkpoint_dir=ckpt_dir,
             state_hash=state_hash, checkpoint_every=interval, resume=resume,
             resume_checkpoint=ckpt, fault_plan=active_plan(self.settings),
-            on_segment=on_segment, **em_kwargs,
+            on_segment=on_segment,
+            telemetry=self._obs if self._obs.enabled else None, **em_kwargs,
         )
         # a resume that was already complete runs no segment: catch up from
         # the result's (checkpoint-restored) histories
@@ -978,10 +1090,12 @@ class Splink:
         def batches():
             return iter_spill_gamma_batches(store, program, batch)
 
+        self._obs.count("pairs_gamma_scored", int(store.total_pairs))
         self._last_em_result = None
         logger.info("spill-fed streamed EM over %d pairs (%d manifest segments)",
                     store.total_pairs, len(store.segments))
         self._run_em_streamed_driver(batches, compute_ll)
+        self._emit_em_diagnostics(None)
 
     def _run_em_streamed_driver(self, batches, compute_ll: bool) -> None:
         """The streamed EM driver: checkpoint and resume plumbing, retry,
@@ -1030,7 +1144,13 @@ class Splink:
             if self.save_state_fn is not None:
                 self.save_state_fn(self.params, self.settings)
 
+        tel = self._obs if self._obs.enabled else None
         with self._timed("em_streamed"):
+            # inside the stage span, so em_begin takes it as the parent of
+            # every em_iteration span
+            if tel is not None:
+                tel.em_begin("streamed", *(t.cpu().numpy() for t in init),
+                             start_iteration=start_iteration)
             _, _, _, converged = run_em_streamed(
                 batches, init,
                 max_iterations=int(self.settings["max_iterations"]),
@@ -1041,6 +1161,7 @@ class Splink:
                 start_iteration=start_iteration,
                 retry_policy=RetryPolicy(),
                 fault_plan=active_plan(self.settings),
+                telemetry=tel,
             )
         if checkpointer is not None:
             checkpointer.finish(converged)
@@ -1060,10 +1181,12 @@ class Splink:
                 # release the (possibly multi-GB) ids on exhaustion AND on an
                 # abandoned generator; a re-stream recomputes them
                 self._P_virtual = None
+                self._obs.finish()
             return
         G = self._ensure_gammas()
         self._run_em(G, compute_ll)
         yield from self.stream_scored_comparisons_after_em()
+        self._obs.finish()
 
     def stream_scored_comparisons_after_em(self):
         """Yield scored frames using the current parameters (EM, or a
@@ -1090,6 +1213,34 @@ class Splink:
                 self.params.log_likelihood_exists = True
             self.params.update_from_arrays(float(lam_h[k]), np.asarray(m_h[k]),
                                            np.asarray(u_h[k]))
+
+    def _emit_em_diagnostics(self, gamma_hist: dict | None) -> None:
+        """Offline EM diagnostics (obs/quality.em_diagnostics): the final
+        m/u/Bayes-factor table with identifiability warnings (levels with
+        ~zero training support, levels where m ~= u), logged as warnings on
+        every fit and emitted as one ``em_diagnostics`` telemetry event.
+        Never raises into the run."""
+        try:
+            from .em import trimmed_trajectory
+            from .obs.quality import em_diagnostics
+
+            diag = em_diagnostics(self.params, gamma_hist)
+            if self._last_em_result is not None:
+                # the per-iteration log likelihood the Params history
+                # cannot reconstruct
+                diag["run"] = trimmed_trajectory(self._last_em_result)
+            for w in diag["warnings"]:
+                logger.warning("EM identifiability: %s", w)
+            self._obs.emit_event("em_diagnostics", **diag)
+        except Exception as e:  # noqa: BLE001 - diagnostics are best-effort
+            logger.warning("EM diagnostics failed: %s", e)
+
+    def close_telemetry(self) -> None:
+        """End this linker's telemetry record now: closes the JSONL sink
+        and unregisters it from the ambient (resilience-event) publisher.
+        Happens when the linker is collected; a no-op when telemetry is
+        off or already closed."""
+        self._obs.close()
 
     def _replay_history(self, result, compute_ll: bool) -> None:
         """Install a run_em result's history into the Params object."""

@@ -5,6 +5,11 @@ Every threshold compare runs in the similarity's own float type: the
 reference compares an f32 score with a Python float under JAX's weak typing,
 i.e. against the threshold rounded to f32, and a pair whose score sits
 exactly at a threshold would change level if the compare were widened.
+
+Constants enter as Python numbers, never as device tensors made from them:
+on CUDA such a tensor is a synchronous host-to-device copy that stalls the
+host until the stream drains, once per call (the serve path and the drift
+sketch run these helpers on every batch).
 """
 
 from __future__ import annotations
@@ -15,7 +20,9 @@ GAMMA_DTYPE = torch.int8
 
 
 def _threshold(t, like):
-    return torch.tensor(t, dtype=like.dtype, device=like.device)
+    """``t`` rounded to ``like``'s dtype, as a Python number: compared with
+    ``like`` it stays in that dtype (a Python scalar does not promote)."""
+    return torch.tensor(t, dtype=like.dtype).item()
 
 
 def bucket_similarity(sim, thresholds, null_mask):
@@ -42,8 +49,7 @@ def bucket_difference_le(diff, thresholds, null_mask, equal, top_level):
     gamma = torch.zeros(diff.shape, dtype=GAMMA_DTYPE, device=diff.device)
     for t in thresholds:
         gamma = gamma + (diff <= _threshold(t, diff)).to(GAMMA_DTYPE)
-    top = torch.tensor(top_level, dtype=GAMMA_DTYPE, device=diff.device)
-    gamma = torch.where(equal, top, gamma)
+    gamma = torch.where(equal, int(top_level), gamma)
     return apply_null(gamma, null_mask)
 
 
@@ -51,6 +57,4 @@ def apply_null(gamma, null_mask):
     """gamma = -1 wherever either side of the comparison is null."""
     if null_mask is None:
         return gamma
-    return torch.where(
-        null_mask, torch.tensor(-1, dtype=GAMMA_DTYPE, device=gamma.device), gamma
-    )
+    return torch.where(null_mask, -1, gamma)

@@ -50,6 +50,7 @@ def run_em_streamed(
     start_iteration: int = 0,
     retry_policy=None,
     fault_plan=None,
+    telemetry=None,
 ):
     """EM over a re-iterable stream of gamma batches on ``init``'s device.
 
@@ -70,6 +71,9 @@ def run_em_streamed(
         fault_plan: optional resilience.FaultPlan consulted at the
             ``batch_fetch`` (per batch) and ``em_iteration`` (per update)
             sites; None resolves the process's active plan.
+        telemetry: optional ``obs.runtime.RunContext``: one EM convergence
+            record per pass (from the host values the pass already read)
+            and the ``em_stream_passes`` counter.
 
     Returns (params, histories, n_updates, converged) mirroring run_em.
     """
@@ -129,6 +133,10 @@ def run_em_streamed(
         if compute_ll:
             ll_hist.append(ll_total)
         converged_now = bool(delta < em_convergence)
+        if telemetry is not None:
+            telemetry.em_update(it, lam_hist[-1], m_hist[-1], u_hist[-1],
+                                ll_total if compute_ll else None, converged_now)
+            telemetry.count("em_stream_passes")
         if on_iteration is not None:
             on_iteration(it, params, ll_total if compute_ll else None, converged_now)
         # after on_iteration, so that a checkpoint hook persists this update

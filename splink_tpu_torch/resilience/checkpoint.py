@@ -1,7 +1,7 @@
 """Atomic on-disk EM checkpoints: snapshot, validate, resume.
 
 The port's copy of splink_tpu/resilience/checkpoint.py (the checkpoint
-file format is the same; the telemetry publish is left out).
+file format and the ``checkpoint`` event are the same).
 
 The entire EM training state is tiny — lambda, the (C, L) m/u matrices,
 their per-iteration histories and an iteration counter — so checkpointing
@@ -192,6 +192,10 @@ def save_checkpoint(directory: str | os.PathLike, ckpt: EMCheckpoint) -> str:
     logger.debug(
         "checkpoint saved: %s (iteration %d)", final, ckpt.iteration
     )
+    from ..obs.events import publish
+
+    publish("checkpoint", path=final, iteration=int(ckpt.iteration),
+            converged=bool(ckpt.converged))
     return final
 
 

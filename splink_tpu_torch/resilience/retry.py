@@ -135,6 +135,11 @@ def retry_call(fn, *, policy: RetryPolicy | None = None, classify=classify_error
                 label or "operation", attempt + 1, policy.max_retries + 1,
                 delay, this_repr,
             )
+            from ..obs.events import publish
+
+            publish("retry", label=label or "operation", attempt=attempt + 1,
+                    max_attempts=policy.max_retries + 1, delay_s=delay,
+                    error=this_repr[:300])
             if on_retry is not None:
                 on_retry(attempt, e)
             sleep(delay)

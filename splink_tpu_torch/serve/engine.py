@@ -53,8 +53,11 @@ bound to the environment and to :meth:`QueryEngine._aot_binding`, the
 reference's keys: a sidecar saved under one bucket menu, top-k or scoring
 path does not serve another.
 
-Not ported yet (raises NotImplementedError naming ROADMAP.md Queue 1 item
-11): the serve-time drift sketch (``sketch=True``).
+``sketch=`` (default: the ``quality_profile`` setting) turns on the
+serve-time drift sketch (obs/drift.py) over an index that carries a quality
+profile: after each full-service batch the top-k winners' gamma levels are
+recomputed and counted into a device accumulator on the same stream, with
+no host read; ``drain_drift`` reads it between batches.
 """
 
 from __future__ import annotations
@@ -68,7 +71,6 @@ import numpy as np
 import torch
 
 from ..analysis import lockwatch
-from ..linker import _not_ported
 from ..utils.logging_utils import warn_degraded
 
 logger = logging.getLogger("splink_tpu_torch")
@@ -265,11 +267,6 @@ class QueryEngine:
                  tf_adjust: bool | None = None):
         from .bucketing import BucketPolicy, bucket_for
 
-        if sketch:
-            raise _not_ported(
-                "sketch=True (the serve-time drift sketch)",
-                "observability, Queue 1 item 11",
-            )
         self.index = index
         self.device = index.device
         settings = index.settings
@@ -319,6 +316,18 @@ class QueryEngine:
             if self.brownout_top_k
             else None
         )
+        # the serve-time drift sketch (obs/drift.py): needs the
+        # quality_profile gate (``sketch=`` overrides it, as ``fused=`` does)
+        # AND a profiled index; a profile-less index serves unchanged
+        self.sketch = None
+        self._sketch_override = sketch  # forwarded across swap_index
+        want_sketch = (
+            bool(settings.get("quality_profile")) if sketch is None else bool(sketch)
+        )
+        if want_sketch and index.profile is not None:
+            from ..obs.drift import ServeSketch
+
+            self.sketch = ServeSketch(index, index.profile)
         self._warmed: set[tuple[int, int]] = set()
         self._warmed_brownout: set[tuple[int, int]] = set()
         # serializes batch dispatch against index hot-swap: a dispatch in
@@ -354,7 +363,7 @@ class QueryEngine:
             "query_buckets": list(self.policy.query_buckets),
             "candidate_buckets": list(self.policy.candidate_buckets),
             "fused": self.fused,
-            "sketch": False,  # the drift sketch is not ported
+            "sketch": self.sketch is not None,
             "tf": bool(self.tf_spec),
         }
 
@@ -486,6 +495,14 @@ class QueryEngine:
                     "brown-out tier is disabled (serve_brownout_top_k=0)"
                 )
             batch = self.encode(df)
+            if self.sketch is not None:
+                # host-side sketch counters from the encoded batch (no device
+                # work); brown-out batches only count as degraded (their
+                # reduced top-k would skew the histograms)
+                if degraded:
+                    self.sketch.note_degraded(batch.n)
+                else:
+                    self.sketch.note_batch(df, batch, len(self.index.rules))
             if approx_out is not None:
                 approx_out.append(batch.approx_used if batch.approx_used is not None
                                   else np.zeros(batch.n, bool))
@@ -547,10 +564,14 @@ class QueryEngine:
             bufs = np.full((len(self.tf_spec), q_pad), -1, np.int32)
             bufs[:, :n] = batch.tf_tids[:, start:stop]
             tf_q = tuple(self._upload(b) for b in bufs)
-        outs = self._dispatch(
-            k, capacity, self._upload(packed_pad.view(np.int32)),
-            self._upload(qb_pad), n, tf_q,
-        )
+        packed_dev = self._upload(packed_pad.view(np.int32))
+        outs = self._dispatch(k, capacity, packed_dev, self._upload(qb_pad), n, tf_q)
+        if self.sketch is not None and not degraded:
+            # fold the batch into the drift accumulator, queued on the same
+            # stream after the scoring it reads: nothing is read back
+            top_p, top_rows, top_valid, _ = outs
+            self.sketch.update(packed_dev, index.device_state()["packed"],
+                               top_rows, top_valid, top_p)
         (self._warmed_brownout if degraded else self._warmed).add((q_pad, capacity))
         if profile is None:
             return tuple(t.cpu().numpy() for t in outs)
@@ -623,6 +644,11 @@ class QueryEngine:
             ]
             for q_pad, capacity in brownout_combos:
                 self._warm_one(q_pad, capacity, degraded=True)
+        # the drift sketch once per query bucket, on an all-invalid batch
+        with self._swap_lock, self._on_device():
+            if self.sketch is not None:
+                for q_pad in self.policy.query_buckets:
+                    self.sketch.warm(q_pad, self.top_k)
         s1 = compile_stats()
         return {
             "combinations": len(combos) + len(brownout_combos),
@@ -674,6 +700,28 @@ class QueryEngine:
         adjustment into its served scores."""
         with self._swap_lock:
             return bool(self.tf_spec)
+
+    # -- drift sketch drain ---------------------------------------------
+
+    def drift_drain_due(self, cadence_s: float) -> bool:
+        """Whether the drift accumulator is due a drain: no lock and no
+        device work, a cheap poll for the service worker and watchdog. The
+        swap lock is held for whole batches, and the watchdog must not
+        stall on one; ``sketch`` only changes at a hot-swap, and racing one
+        at worst answers for the outgoing sketch (corrected next poll)."""
+        # threadlint: disable=TL001 (atomic reference read, see docstring)
+        return self.sketch is not None and self.sketch.drain_due(cadence_s)
+
+    def drain_drift(self):
+        """Read and reset the drift accumulator into one window sketch
+        (:class:`~..obs.drift.WindowSketch`), or None when sketching is
+        off. The sketch's ONLY device read, made between batches by the
+        service worker or by the watchdog when idle, never inside a
+        dispatch."""
+        with self._swap_lock, self._on_device():
+            if self.sketch is None:
+                return None
+            return self.sketch.drain()
 
     # -- parity probes & index hot-swap ---------------------------------
 
@@ -749,6 +797,7 @@ class QueryEngine:
                 policy=self.policy,
                 brownout_top_k=self.brownout_top_k,
                 fused=self.fused,
+                sketch=self._sketch_override,
                 tf_adjust=self._tf_override,
             )
             warm = pending.warmup()
@@ -772,6 +821,8 @@ class QueryEngine:
             self.index = pending.index
             self.device = pending.device
             self.tf_spec = pending.tf_spec
+            # the drift sketch binds to the new index's profile and device
+            self.sketch = pending.sketch
             self._warmed = pending._warmed
             self._warmed_brownout = pending._warmed_brownout
             if new_probes is not None:

@@ -41,9 +41,11 @@ derived-key expressions included). Residual predicates and cross-column
 equalities have no bucket structure to index; :func:`build_index` rejects
 them rather than serving wrong candidates.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-the training-reference quality profile (``quality_profile``, Queue 1 item
-11), at build and when loading an artifact that carries one.
+With ``quality_profile`` on, :func:`build_index` captures the
+training-reference quality profile (obs/quality.py) on the linker's device;
+``save`` writes its four ``profile_*`` arrays inside the fingerprinted
+payload and ``load_index`` restores them. The profile stays outside
+``content_fingerprint()``: it describes the training data, not an answer.
 """
 
 from __future__ import annotations
@@ -73,7 +75,6 @@ from ..gammas import (
     pack_table,
     qgram_specs_for,
 )
-from ..linker import _not_ported
 from ..resilience.checkpoint import (
     atomic_write_bytes,
     atomic_write_json,
@@ -98,7 +99,6 @@ _HASH_CHUNK_ROWS = 1 << 18
 # canonical-key-token separator (see _canon_token)
 _KEY_SEP = "\x1f"
 
-_PROFILE_ITEM = "the training-reference quality profile, Queue 1 item 11"
 
 
 def _hash_update_array(h, arr: np.ndarray, chunk_rows: int = _HASH_CHUNK_ROWS):
@@ -341,6 +341,7 @@ class LinkageIndex:
         state_hash: str,
         tf_tids: dict | None = None,
         approx: ApproxServe | None = None,
+        profile=None,
         device=None,
     ):
         self.settings = settings
@@ -362,6 +363,10 @@ class LinkageIndex:
         self.tf_tids = dict(tf_tids or {})
         self.state_hash = state_hash
         self.approx = approx  # the LSH fallback (None = exact only)
+        # the training-reference quality profile (obs/quality.py), None on
+        # profile-less artifacts; not part of content_fingerprint(): it
+        # describes the training data, not the answers served
+        self.profile = profile
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # named explicitly: a serving thread must not depend on its
@@ -698,6 +703,13 @@ class LinkageIndex:
             arrays[f"tf_{name}"] = counts
         for name, tids in self.tf_tids.items():
             arrays[f"tftid_{name}"] = tids
+        if self.profile is not None:
+            # inside the npz payload, so arrays_sha256 (the fingerprint
+            # load_index verifies) covers the profile arrays too
+            arrays["profile_gamma_hist"] = self.profile.gamma_hist
+            arrays["profile_score_hist"] = self.profile.score_hist
+            arrays["profile_gamma_hist_matched"] = self.profile.gamma_hist_matched
+            arrays["profile_score_hist_matched"] = self.profile.score_hist_matched
         if self.unique_id.dtype != object:
             arrays["unique_id"] = self.unique_id
         if any(isinstance(a, np.memmap) for a in arrays.values()):
@@ -748,7 +760,7 @@ class LinkageIndex:
                     ],
                 }
             ),
-            "profile": None,
+            "profile": None if self.profile is None else self.profile.to_meta(),
             "n_rows": self.n_rows,
             "unique_id_json": (
                 self.unique_id.tolist() if self.unique_id.dtype == object else None
@@ -852,8 +864,6 @@ def load_index(directory: str | os.PathLike, device=None) -> LinkageIndex:
             f"(settings hash {meta.get('state_hash')!r}, recomputed "
             f"{expect!r}); rebuild the index"
         )
-    if meta.get("profile") is not None:
-        raise _not_ported("an index artifact with a quality profile", _PROFILE_ITEM)
     npz = np.load(io.BytesIO(payload), allow_pickle=False)
     rules = [
         ServeRule(
@@ -896,6 +906,21 @@ def load_index(directory: str | os.PathLike, device=None) -> LinkageIndex:
                 for b, bo in enumerate(am["bucket_of"])
             ],
         )
+    profile = None
+    pm = meta.get("profile")
+    if pm is not None:
+        from ..obs.quality import QualityProfile
+
+        files = set(npz.files)
+        profile = QualityProfile.from_meta(
+            pm,
+            npz["profile_gamma_hist"],
+            npz["profile_score_hist"],
+            npz["profile_gamma_hist_matched"]
+            if "profile_gamma_hist_matched" in files else None,
+            npz["profile_score_hist_matched"]
+            if "profile_score_hist_matched" in files else None,
+        )
     index = LinkageIndex(
         settings=settings,
         dtype=meta["dtype"],
@@ -913,6 +938,7 @@ def load_index(directory: str | os.PathLike, device=None) -> LinkageIndex:
         state_hash=meta["state_hash"],
         tf_tids=tf_tids,
         approx=approx,
+        profile=profile,
         device=device,
     )
     return _attach_rebuilt_layout(index)
@@ -1047,8 +1073,6 @@ def build_index(linker, *, clear_caches: bool = True) -> LinkageIndex:
     bucket build warms, which the index does not need.
     """
     settings = linker.settings
-    if settings.get("quality_profile"):
-        raise _not_ported("a serving index with quality_profile", _PROFILE_ITEM)
     table = linker._ensure_encoded()
     if table.n_rows == 0:
         raise ValueError("cannot build a serving index over an empty table")
@@ -1120,6 +1144,29 @@ def build_index(linker, *, clear_caches: bool = True) -> LinkageIndex:
             approx = _build_approx_serve(
                 table, settings, linker.device, linker.device if device_csr else None)
 
+        # the training-reference quality profile (obs/quality.py): the drift
+        # observatory's baseline, captured from whichever training gammas
+        # the linker still holds and published as a quality_profile event
+        profile = None
+        if settings.get("quality_profile"):
+            from ..obs.events import publish
+            from ..obs.quality import capture_profile
+
+            profile = capture_profile(linker, table)
+            if profile is None:
+                import warnings
+
+                warnings.warn(
+                    "quality_profile is on but the linker holds no "
+                    "training gammas (train with estimate_parameters / "
+                    "get_scored_comparisons in this process before "
+                    "export_index); the index ships WITHOUT a reference "
+                    "profile and serve-time drift reporting will be dark."
+                )
+            else:
+                publish("quality_profile", **profile.summary())
+                linker._obs.record("quality_profile", profile.summary())
+
         from ..term_frequencies import term_frequency_columns, tf_fold_spec
 
         tf_tables = {}
@@ -1158,6 +1205,7 @@ def build_index(linker, *, clear_caches: bool = True) -> LinkageIndex:
             state_hash=state_hash,
             tf_tids=tf_tids,
             approx=approx,
+            profile=profile,
             device=linker.device,
         )
     finally:

@@ -43,9 +43,15 @@ one bit for bit; ``submit(trace=)`` takes a router's or wire server's
 trace context; :meth:`fleet_stats` is the mergeable export that
 ``obs.fleet`` federates.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md Queue 1
-item 11): ``telemetry_dir`` in the index's settings (run telemetry) and
-the drift monitor (``drift_snapshot``).
+Drift (obs/drift.py): over an engine that sketches (``quality_profile``
+on and a profiled index) a :class:`~..obs.drift.DriftMonitor` drains the
+engine's accumulator between batches and at close, publishes
+``drift_window`` reports and ``drift_alert``/``drift_clear`` transitions (an
+alert dumps the flight recorder), and :meth:`drift_snapshot` reports it
+(``reference: False`` with the reason for a service without one). With a
+``telemetry`` ``RunContext`` each batch is a ``serve_batch`` span and the
+latency summary lands in its run record; the index's ``telemetry_dir``
+receives the flight recorder's dumps.
 """
 
 from __future__ import annotations
@@ -61,7 +67,6 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..analysis import lockwatch
-from ..linker import _not_ported
 from ..resilience.faults import active_plan
 from ..utils.logging_utils import warn_degraded
 from .admission import CircuitBreaker, WaitEstimator, brownout_active
@@ -71,7 +76,6 @@ logger = logging.getLogger("splink_tpu_torch")
 
 _LATENCY_RESERVOIR = 65536  # newest-N latency samples kept for percentiles
 _RECENT_WINDOW = 512  # newest-N samples for the health monitor's p95
-_OBS_ITEM = "observability, Queue 1 item 11"
 
 
 @dataclass
@@ -149,6 +153,7 @@ class LinkageService:
         queue_depth: int | None = None,
         deadline_ms: float | None = None,
         autostart: bool = True,
+        telemetry=None,
         name: str = "serve",
         breaker_threshold: int | None = None,
         breaker_cooldown_s: float = 1.0,
@@ -165,8 +170,6 @@ class LinkageService:
         perf_window_s: float | None = None,
     ):
         settings = engine.index.settings
-        if settings.get("telemetry_dir"):
-            raise _not_ported("a non-empty 'telemetry_dir'", _OBS_ITEM)
         self.engine = engine
         self.name = name
         self.queue_depth = int(
@@ -197,6 +200,7 @@ class LinkageService:
             else settings.get("serve_probe_queries", 16) or 0
         )
         self._settings = settings
+        self._obs = telemetry
         self._lock = lockwatch.new_lock("LinkageService._lock")
         self._nonempty = threading.Condition(self._lock)
         # (record, future, t_enqueue, deadline, trace): trace is None for
@@ -220,6 +224,7 @@ class LinkageService:
         self._swap_in_progress = False
         self._t_start = time.monotonic()
         self._stop = False
+        self._summary_recorded = False
         self._thread: threading.Thread | None = None
         self._watchdog: threading.Thread | None = None
         self._watchdog_stop = threading.Event()
@@ -247,11 +252,16 @@ class LinkageService:
             if flight_records is not None
             else settings.get("obs_flight_records", 256) or 0
         )
-        self._flight = FlightRecorder(n_flight, dump_dir=None, name=name)
+        self._flight = FlightRecorder(
+            n_flight, dump_dir=(settings.get("telemetry_dir") or None), name=name
+        )
         if self._flight.enabled:
             register_ambient(self._flight)
         self._tracer = ServeTracer(rate, service=name, flight=self._flight)
         self._slo = SLOTracker(objective=slo_objective)
+        # the drift observatory: present only when the engine sketches
+        self._drift_alert_active = False
+        self._drift = self._make_drift_monitor()
         # kernel performance watch: rolling-window execute-latency
         # regression alerts over the batch wall and the PhaseProfile splits
         self._perf_alert_active = False
@@ -304,6 +314,7 @@ class LinkageService:
                 self._thread = threading.Thread(
                     target=self._worker, name="splink-serve", daemon=True
                 )
+                self._summary_recorded = False  # a reopen records again
                 self._thread.start()
         if self._watchdog is None or not self._watchdog.is_alive():
             self._watchdog_stop = threading.Event()
@@ -345,6 +356,16 @@ class LinkageService:
             self._inflight = []
         for entry in stragglers:
             self._resolve_shed(entry[1], "closed", entry[4])
+        # final drift drain: the tail window must not stay in the device
+        # accumulator (short-lived services still report their drift)
+        self._drift_tick(force=True)
+        # once per lifetime: close() is idempotent and must not record the
+        # latency summary twice (the check-and-set is atomic)
+        with self._lock:
+            record_summary = self._obs is not None and not self._summary_recorded
+            self._summary_recorded = True
+        if record_summary:
+            self._obs.record("serve_latency", self.latency_summary())
         if self._exposition is not None:
             self._exposition.close()
             self._exposition = None
@@ -485,6 +506,9 @@ class LinkageService:
                 if batch is None:
                     return
                 self._serve_batch(batch)
+                # drift drains ride BETWEEN batches (one bounded device read
+                # per drain cadence, never inside a dispatch)
+                self._drift_tick()
                 self._perf_tick()
         except Exception:  # noqa: BLE001 - a dying worker must not spam stderr
             logger.exception(
@@ -605,7 +629,11 @@ class LinkageService:
         try:
             active_plan(self._settings).fire("serve_batch", batch=batch_no)
             df = pd.DataFrame.from_records(records)
-            results = self._score(df, degraded, profile)
+            if self._obs is not None:
+                with self._obs.span("serve_batch", batch=len(live), degraded=degraded):
+                    results = self._score(df, degraded, profile)
+            else:
+                results = self._score(df, degraded, profile)
         except Exception as e:  # noqa: BLE001 - one bad batch must not kill the loop
             logger.exception("serve batch failed; shedding %d request(s)", len(live))
             opened = self.breaker.on_failure()
@@ -673,6 +701,8 @@ class LinkageService:
                 traces[i], "delivered", profile=profile, batch=len(live),
                 degraded=degraded, generation=generation,
             )
+            if self._obs is not None:
+                self._obs.observe("serve_latency_ms", res.latency_ms)
         with self._lock:
             self._batches += 1
             first_batch = self._batches == 1
@@ -803,10 +833,121 @@ class LinkageService:
                         )
         # 3. health evaluation from live signals
         self._maybe_evaluate_health()
-        # 4. the perf-alert state machine ages out of alerting when idle
+        # 4. drift windows advance even when traffic stops (an idle
+        # service still ages out its rolling drift windows), and the
+        # perf-alert state machine ages out of alerting the same way
+        self._drift_tick()
         self._perf_tick()
 
     # -- kernel performance watch ----------------------------------------
+
+    # -- drift observatory ----------------------------------------------
+
+    def _make_drift_monitor(self):
+        sketch = getattr(self.engine, "sketch", None)
+        if sketch is None:
+            return None
+        from ..obs.drift import DriftMonitor
+
+        s = self._settings
+        profile = self.engine.index.profile
+        # the served-score distribution and the profile's must describe
+        # the SAME scoring (both TF-adjusted or both not) — either
+        # mismatch (TF engine over a pre-fold unadjusted profile, OR a
+        # tf_adjust=False engine over an adjusted profile) would alert on
+        # the adjustment delta itself. Re-anchor the score channel dark
+        # with a reason instead; the fold-invariant gamma channels stay.
+        score_reference = bool(
+            getattr(self.engine, "tf_active", False)
+        ) == bool(getattr(profile, "tf_adjusted", False))
+        return DriftMonitor(
+            profile,
+            window_s=float(s.get("drift_window_s", 60.0) or 60.0),
+            alert_psi=float(s.get("drift_alert_psi", 0.25) or 0.0),
+            score_reference=score_reference,
+        )
+
+    def _drift_tick(self, force: bool = False) -> None:
+        """Drain the engine's drift accumulator when a window bucket is
+        due, score the rolling windows and drive the two-window alert
+        state machine. Never raises into the worker/watchdog."""
+        drift = self._drift
+        if drift is None:
+            return
+        try:
+            if not force and not self.engine.drift_drain_due(
+                drift.drain_cadence_s
+            ):
+                return
+            window = self.engine.drain_drift()
+            if window is None:
+                return
+            drift.observe(window)
+            from ..obs.events import publish
+
+            short = drift.window_drift(drift.window_s)
+            if short is not None:
+                publish(
+                    "drift_window",
+                    replica=self.name,
+                    window_s=short["window_s"],
+                    queries=short["queries"],
+                    pairs=short["pairs"],
+                    served_pairs=short["served_pairs"],
+                    match_yield=short["match_yield"],
+                    max_psi=short["max_psi"],
+                    channels={
+                        ch: v.get("psi")
+                        for ch, v in short["channels"].items()
+                    },
+                    oov_rate=short["oov_rate"],
+                    exact_miss_rate=short["exact_miss_rate"],
+                    approx_rate=short["approx_rate"],
+                )
+            self._evaluate_drift_alerts(drift, short=short)
+        except Exception as e:  # noqa: BLE001 - obs must not break serving
+            logger.warning("drift tick failed: %s", e)
+
+    def _evaluate_drift_alerts(self, drift, short=None) -> None:
+        """Alert transitions: entering publishes one ``drift_alert``
+        event (which also triggers a flight-recorder dump — the incident
+        artifact for "the answers changed"); leaving publishes
+        ``drift_clear``. Level-triggered state, edge-triggered events."""
+        from ..obs.events import publish
+
+        fired = drift.alerts(short=short)
+        if fired and not self._drift_alert_active:
+            self._drift_alert_active = True
+            publish("drift_alert", replica=self.name, alerts=fired)
+            logger.warning(
+                "serve drift alert: %s exceed PSI %.3g over both the "
+                "%.0fs and %.0fs windows — the served distribution has "
+                "moved off the training reference (retrain trigger)",
+                ", ".join(a["channel"] for a in fired),
+                drift.alert_psi, drift.window_s, drift.long_window_s,
+            )
+        elif not fired and self._drift_alert_active:
+            self._drift_alert_active = False
+            publish("drift_clear", replica=self.name)
+            logger.info("serve drift alert cleared (replica %s)", self.name)
+
+    def drift_snapshot(self) -> dict:
+        """The drift observatory's live report: per-channel PSI/JS over
+        the short and long rolling windows vs the training-reference
+        profile, serve-side OOV/approx/null rates, fired alerts. A
+        profile-less index (or quality_profile off) reports
+        ``reference: False`` with the reason — it never raises."""
+        from ..obs.drift import no_reference_snapshot
+
+        if self._drift is None:
+            if getattr(self.engine.index, "profile", None) is None:
+                return no_reference_snapshot()
+            return no_reference_snapshot(
+                "drift sketching disabled (quality_profile off)"
+            )
+        snap = self._drift.snapshot()
+        snap["alert_active"] = self._drift_alert_active
+        return snap
 
     def _perf_tick(self) -> None:
         """Advance the perf-regression alert state machine (edge-triggered
@@ -870,9 +1011,6 @@ class LinkageService:
         snap["enabled"] = True
         snap["alert_active"] = self._perf_alert_active
         return snap
-
-    def drift_snapshot(self) -> dict:
-        raise _not_ported("the serve drift monitor", _OBS_ITEM)
 
     # -- health ---------------------------------------------------------
 
@@ -950,7 +1088,7 @@ class LinkageService:
         """Hot-swap the engine's index (:meth:`~.engine.QueryEngine.swap_index`)
         while this service keeps serving the old one; the swap's own
         library builds are excluded from the build-stall signal, and the
-        kernel watch re-anchors on post-swap traffic."""
+        drift monitor and kernel watch re-anchor on post-swap traffic."""
         from ..obs.metrics import compile_totals
 
         with self._lock:
@@ -963,6 +1101,11 @@ class LinkageService:
             with self._signals_lock:
                 self._last_compile_s = compile_totals()[1]
                 self._stall_accum = 0.0
+        # the committed index may carry another (or no) reference profile:
+        # old windows describe the old reference and must not score
+        # against the new one
+        self._drift = self._make_drift_monitor()
+        self._drift_alert_active = False
         if self._kwatch is not None:
             from ..obs.kernelwatch import KernelWatch
 
@@ -1024,10 +1167,10 @@ class LinkageService:
         (:mod:`..obs.fleet`; served over the wire as the ``stats``
         envelope): counters add, the kernel watch's log2-bucket histograms
         add element-wise with an exact ``sum`` and the SLO tracker's
-        time-bucketed ring adds per bucket index, so a merge of N hosts'
-        exports equals the single-tracker view of the union of their
-        observations bit for bit. There is no ``drift`` key: the drift
-        monitor is not ported."""
+        time-bucketed ring adds per bucket index, and the ``drift``
+        aggregates (present when the engine sketches) are integer count
+        tensors, so a merge of N hosts' exports equals the single-tracker
+        view of the union of their observations bit for bit."""
         with self._lock:
             counters = {
                 "served": self._served,
@@ -1064,6 +1207,12 @@ class LinkageService:
                         "n": int(n),
                     }
             out["perf"] = {"edges": list(HIST_EDGES), "phases": phases}
+        drift = self._drift
+        if drift is not None:
+            try:
+                out["drift"] = drift.export_aggregate()
+            except Exception as e:  # noqa: BLE001 - federation must not break serving
+                logger.warning("drift export failed: %s", e)
         return out
 
     @property
@@ -1072,9 +1221,9 @@ class LinkageService:
 
     def prometheus_samples(self) -> list:
         """The service's metric families for the text-exposition endpoint
-        (:mod:`..obs.exposition`), the reference's families without the
-        drift series. Reads the same locked snapshots the JSON endpoints
-        use; safe from the scrape thread."""
+        (:mod:`..obs.exposition`), the reference's families. Reads the same
+        locked snapshots the JSON endpoints use; safe from the scrape
+        thread."""
         from ..obs.exposition import Sample, process_samples
         from .health import health_rank
 
@@ -1160,6 +1309,7 @@ class LinkageService:
                     {**replica, "outcome": outcome}, "counter",
                     "Closed span trees by outcome",
                 ))
+        out.extend(self._drift_samples(replica))
         out.extend(self._perf_samples(replica))
         out.extend(process_samples())
         return out
@@ -1222,4 +1372,63 @@ class LinkageService:
                         help="Per-phase execute-time distribution "
                              "(seconds; exact sum)",
                     ))
+        return out
+
+    def _drift_samples(self, replica: dict) -> list:
+        """Drift-observatory series: reference presence, per-channel PSI
+        over the short window, serve-side rates, the alert gauge and the
+        served-score distribution as a NATIVE Prometheus histogram
+        (``_bucket``/``_sum``/``_count`` with cumulative ``le`` bounds)."""
+        from ..obs.exposition import Sample, histogram_from_counts
+
+        drift = self.drift_snapshot()
+        out = [Sample(
+            "splink_serve_drift_reference",
+            1.0 if drift.get("reference") else 0.0, replica, "gauge",
+            "Training-reference quality profile present and sketching on",
+        )]
+        if not drift.get("reference"):
+            return out
+        out.append(Sample(
+            "splink_serve_drift_alert",
+            1.0 if drift.get("alerts") else 0.0, replica, "gauge",
+            "Two-window PSI drift alert firing",
+        ))
+        short = drift.get("short") or {}
+        for channel, v in sorted((short.get("channels") or {}).items()):
+            if v.get("psi") is not None:
+                out.append(Sample(
+                    "splink_serve_drift_psi", v["psi"],
+                    {**replica, "channel": channel}, "gauge",
+                    "PSI of the rolling short window vs the training "
+                    "reference, per channel",
+                ))
+        for key, metric in (
+            ("oov_rate", "splink_serve_drift_oov_rate"),
+            ("exact_miss_rate", "splink_serve_drift_exact_miss_rate"),
+            ("approx_rate", "splink_serve_drift_approx_rate"),
+        ):
+            if short.get(key) is not None:
+                out.append(Sample(
+                    metric, short[key], replica, "gauge",
+                    "Serve-side rate over the short drift window",
+                ))
+        if short.get("match_yield") is not None:
+            out.append(Sample(
+                "splink_serve_drift_match_yield", short["match_yield"],
+                replica, "gauge",
+                "Matched top-k pairs / served top-k pairs over the short "
+                "drift window (collapse = catastrophic upstream drift)",
+            ))
+        monitor = self._drift
+        if monitor is not None and monitor.profile is not None:
+            counts = monitor.score_window_counts(monitor.window_s)
+            if counts is not None and counts.sum() > 0:
+                bins = monitor.profile.bins
+                edges = [(i + 1) / bins for i in range(bins)]
+                out.append(histogram_from_counts(
+                    "splink_serve_drift_score", counts, edges, replica,
+                    "Served match-probability distribution over the short "
+                    "drift window (sum approximated from bin midpoints)",
+                ))
         return out

@@ -378,7 +378,6 @@ def test_entry_point_default_device_raises_without_cuda(monkeypatch, dedupe_df, 
     "override",
     [
         {"mesh": {"data": 2}},
-        {"telemetry_dir": "tel"},
     ],
     ids=lambda o: next(iter(o)),
 )

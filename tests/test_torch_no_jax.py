@@ -18,8 +18,11 @@ submitted records (the obs copies it builds included), and ``python -m
 splink_tpu_torch.serve`` (``--help``, ``build`` and ``query`` on the CPU),
 and the serving fleet: a saved and restored AOT sidecar, a WireServer, a
 RemoteReplica behind a ReplicaRouter and a FleetAggregator's exposition.
-Last, the approximate tier (``approx_blocking`` with TF weighting) in
-training and in an index's serving fallback.
+Then the approximate tier (``approx_blocking`` with TF weighting) in
+training and in an index's serving fallback. Last, observability: a run
+with ``telemetry_dir`` and ``profile_dir``, a profiled index (saved and
+loaded) under a sketching engine and a service's drift snapshot, and
+``python -m splink_tpu_torch.obs summarize`` of the run's record.
 """
 
 import os
@@ -65,7 +68,8 @@ for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "
              "obs.events", "obs.flight", "obs.reqtrace", "obs.slo", "obs.kernelwatch",
              "obs.metrics", "approx", "approx.minhash", "approx.lsh", "serve.aot",
              "serve.router", "serve.wire", "serve.remote", "obs.fleet", "obs.exposition",
-             "obs.tracer", "utils.envfp"):
+             "obs.tracer", "utils.envfp", "obs.runtime", "obs.quality", "obs.drift",
+             "obs.cli", "obs.__main__", "utils.profiling"):
     assert f"splink_tpu_torch.{want}" in names, want
 
 
@@ -208,6 +212,40 @@ assert len(aout) > 1000 and np.isfinite(aout["match_probability"]).all()
 aengine = QueryEngine(alinker.export_index(), top_k=8, policy=BucketPolicy((16,), (512,)))
 garbled = df.head(10).assign(blk=-1)
 assert aengine.query(garbled)["approx"].any()
+# observability: telemetry and profiler traces, a profiled index under a
+# sketching engine, the drift snapshot, and the obs CLI on the record
+import glob
+from splink_tpu_torch.obs.events import read_events
+
+tel, prof = tempfile.mkdtemp(), tempfile.mkdtemp()
+olinker = splink_tpu_torch.Splink(dict(settings, telemetry_dir=tel, profile_dir=prof,
+                                       quality_profile=True, max_iterations=3),
+                                  df=df, device="cpu")
+olinker.get_scored_comparisons()
+oindex = olinker.export_index(os.path.join(d, "profiled"))
+olinker.close_telemetry()
+types = {e["type"] for e in read_events(olinker._obs.sink.path)}
+assert {"span", "em_iteration", "metrics", "em_diagnostics", "quality_profile"} <= types, types
+assert glob.glob(os.path.join(prof, "em", "*.json"))
+loaded = load_index(os.path.join(d, "profiled"), device="cpu")
+assert loaded.profile is not None and loaded.profile.n_pairs == oindex.profile.n_pairs
+sengine = QueryEngine(loaded, top_k=8, policy=BucketPolicy((16,), (64, 512)))
+assert sengine.sketch is not None
+sengine.warmup()
+sengine.query(df.head(12))
+window = sengine.drain_drift()
+assert window.counters["queries"] == 12 and window.score_all.sum() > 0
+with LinkageService(sengine, deadline_ms=5.0) as dsvc:
+    dsvc.query(df.head(1).to_dict(orient="records")[0], timeout=60)
+    dsvc._drift_tick(force=True)
+    assert dsvc.drift_snapshot()["reference"] is True
+sys.argv = ["splink_tpu_torch.obs", "summarize", olinker._obs.sink.path]
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    try:
+        runpy.run_module("splink_tpu_torch.obs", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "EM:" in buf.getvalue() and "EM diagnostics" in buf.getvalue(), buf.getvalue()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok", len(names), len(out))

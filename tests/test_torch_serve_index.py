@@ -372,22 +372,32 @@ def test_killed_out_of_core_build_resumes_bit_identical(model_json, tmp_path):
 
 
 def test_unported_index_options_raise(model_json, tmp_path):
+    """``quality_profile`` is ported (it raised before): a linker holding no
+    training gammas builds a profile-less index with the reference's
+    warning; a scored one captures the profile, which ``save`` writes and
+    ``load_index`` restores array for array, outside the content
+    fingerprint."""
     from splink_tpu_torch.serve import load_index
 
     _, port = _both(model_json, "float32")
     port.settings["quality_profile"] = True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.export_index()
-    port.settings["quality_profile"] = False
+    with pytest.warns(UserWarning, match="no training gammas"):
+        assert port.export_index().profile is None
+    port.manually_apply_fellegi_sunter_weights()
     path = tmp_path / "idx"
-    port.export_index(path)
-    m = _meta(path)
-    m["profile"] = {"anything": 1}
-    d = tmp_path / "profile"
-    shutil.copytree(path, d)
-    (d / "linkage_index.json").write_text(json.dumps(m))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_index(d, device="cpu")
+    index = port.export_index(path)
+    assert index.profile is not None
+    assert index.profile.n_pairs == len(port._G)
+    assert _meta(path)["profile"]["n_pairs"] == len(port._G)
+    loaded = load_index(path, device="cpu")
+    for name in ("gamma_hist", "score_hist", "gamma_hist_matched", "score_hist_matched"):
+        np.testing.assert_array_equal(getattr(loaded.profile, name),
+                                      getattr(index.profile, name))
+    assert loaded.profile.to_meta() == index.profile.to_meta()
+    fp = index.content_fingerprint()
+    assert loaded.content_fingerprint() == fp
+    index.profile, index._content_fp = None, None
+    assert index.content_fingerprint() == fp
 
 
 def test_unsupported_blocking_rules_rejected(model_json):

@@ -10,6 +10,7 @@ no exception escapes through a future. Served scores equal the port's
 offline scores bit for bit.
 """
 
+import os
 import threading
 import time
 import warnings
@@ -436,7 +437,7 @@ def test_traced_requests_split_their_phases(engine, trained):
     svc.close()
 
 
-def test_unported_service_options_raise(engine):
+def test_unported_service_options_raise(engine, tmp_path):
     # a non-zero exposition port serves the Prometheus text (ported with
     # obs/exposition.py); a free port is found first
     import socket
@@ -451,12 +452,17 @@ def test_unported_service_options_raise(engine):
             assert "splink_serve_served_total" in r.read().decode()
     finally:
         served.close()
+    # the drift monitor is ported: a service over a profile-less index
+    # reports the reference's no-reference snapshot instead of raising
     svc = LinkageService(engine, autostart=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        svc.drift_snapshot()
-    engine.index.settings["telemetry_dir"] = "somewhere"
+    assert svc.drift_snapshot() == {"reference": False,
+                                    "reason": "no reference profile", "alerts": []}
+    assert "drift" not in svc.fleet_stats()
+    # telemetry_dir is accepted: it is where the flight recorder dumps
+    engine.index.settings["telemetry_dir"] = str(tmp_path)
     try:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            LinkageService(engine, autostart=False)
+        svc = LinkageService(engine, autostart=False)
+        path = svc.flight_recorder.dump("manual")
+        assert path is not None and os.path.dirname(path) == str(tmp_path)
     finally:
         engine.index.settings["telemetry_dir"] = None
