@@ -111,7 +111,14 @@ sketch-off engine's, drained counts ``==`` a host oracle, no
 synchronizing operation in its update), and the drift monitor in a
 LinkageService (a clean replay below the alert PSI; ``city`` shifted fires
 one ``drift_alert``, a flight dump in ``telemetry_dir`` and an alert naming
-``gamma:city``).
+``gamma:city``). The ``analysis`` phase, after ``obs``: the trace
+audit, the num audit and the perf audit (``splink_tpu_torch.analysis``)
+on the card over all 29 registered kernels, against the committed
+``cuda`` tier of ``perf_baselines.json`` and ``num_baselines.json``; any
+finding raises. The ``jaro_winkler`` and ``levenshtein`` entries must
+launch the hand kernels (their records carry the launches, and one call
+of each adds one to ``strings_cuda.launches``); the phase's line lists
+every perf cell's ``execute_ms`` and every kernel's host syncs.
 Every phase prints one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
@@ -2954,6 +2961,57 @@ APPROX_TOP_K = 8
 APPROX_RECALL_MIN = 0.8  # planted twins found at the budget (the reference: 0.89)
 
 
+def analysis_phase(torch, strings_cuda):
+    """The three measured analysis layers on the card over every registered
+    kernel, against the committed ``cuda`` tier: any finding raises.
+    Returns the phase's fields."""
+    from splink_tpu_torch.analysis import num_audit, perf_audit, trace_audit
+
+    fields = {}
+    t0 = time.perf_counter()
+    findings, fields["kernels_audited"] = trace_audit.run_audit(device="cuda")
+    fields["trace_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    num_findings, fields["num_audited"] = num_audit.run_num_audit(device="cuda")
+    fields["num_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    measured = {}
+    perf_findings, fields["perf_cells"] = perf_audit.run_perf_audit(
+        device="cuda", measured_out=measured)
+    fields["perf_s"] = time.perf_counter() - t0
+    findings = findings + num_findings + perf_findings
+    if findings:
+        raise AssertionError("analysis findings on the card:\n"
+                             + "\n".join(f.format() for f in findings))
+    records = {name: spec.cache[("record", "cuda")]
+               for name, spec in sorted(trace_audit.REGISTRY.items())}
+    # the hand kernels' registry entries launch the hand kernels: the
+    # records carry the launches, and one more call adds one to each count
+    launched = {}
+    for kernel in KERNELS:
+        ops = [op[0] for op in records[kernel].ops]
+        if f"strings_cuda.{kernel}/u8/w1" not in ops:
+            raise AssertionError(f"registry entry {kernel} did not launch its kernel: {ops[-3:]}")
+        before = strings_cuda.launches[kernel]
+        fn, args, kwargs = trace_audit.REGISTRY[kernel].built("cuda")
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        launched[kernel] = strings_cuda.launches[kernel] - before
+        if launched[kernel] != 1:
+            raise AssertionError(f"{kernel}: {launched[kernel]} launches from one call")
+    fields["registry_launches"] = launched
+    fields["execute_ms"] = {cell: rec["execute_ms"] for cell, rec in measured.items()}
+    fields["syncs"] = {name: trace_audit.sync_count(r) for name, r in records.items()}
+    fields["syncs_recorded"] = {name: len(r.syncs) for name, r in records.items()}
+    # the phases after this one need the card's memory, not the audits'
+    # memoised inputs (the full-size cells hold ~0.1 GB)
+    for spec in trace_audit.REGISTRY.values():
+        spec.cache.clear()
+    trace_audit.shared_fs_inputs.cache_clear()
+    trace_audit.shared_gamma_program.cache_clear()
+    return fields
+
+
 def approx_settings(n_base: int, **over):
     """The main path's comparison columns, blocked on the names alone, with
     the approximate tier at bench.py's settings: threshold 0.2 and a budget
@@ -3724,6 +3782,20 @@ def main() -> int:
     for r in rows:
         if r["name"] in KERNELS:
             r["obs_path_launches"] = obs_launches[r["name"]]
+
+    # -- the measured analysis layers on the card: trace, num and perf
+    # -- audits over every registered kernel, against the committed cuda tier
+    zero_counts(strings_cuda, native, tf)
+    t0 = time.perf_counter()
+    analysis = analysis_phase(torch, strings_cuda)
+    analysis_launches = dict(strings_cuda.launches)
+    if not all(analysis_launches[k] for k in KERNELS):
+        raise AssertionError(f"analysis path launched {analysis_launches}")
+    emit("analysis", phase_s=time.perf_counter() - t0, smi=smi,
+         path_launches=analysis_launches, **analysis)
+    for r in rows:
+        if r["name"] in KERNELS:
+            r["analysis_path_launches"] = analysis_launches[r["name"]]
 
     # -- the approximate tier at bench.py's size: minhash-LSH blocking into
     # -- the main path's columns, parity with the CPU, the serving fallback

@@ -38,12 +38,12 @@ def _chunked(fn, *arrays):
     return torch.cat([fn(*(a[s : s + rows] for a in arrays)) for s in range(0, n, rows)])
 
 
-def _three(device):
-    """3.0 as a float32 tensor on ``device``. Dividing by it, not by the
+def _three(device, dtype=torch.float32):
+    """3.0 as a ``dtype`` tensor on ``device``. Dividing by it, not by the
     Python float, keeps a true division on CUDA: PyTorch turns division by
     a CPU scalar into multiplication by its reciprocal there, which rounds
     differently from the reference's (and the kernel's) division."""
-    return torch.tensor(3.0, dtype=torch.float32, device=device)
+    return torch.tensor(3.0, dtype=dtype, device=device)
 
 
 def _chars(s):
@@ -98,8 +98,7 @@ def _greedy_vector(a, b, la, lb, window, idx):
     return matched_a, used_b, eq
 
 
-def _jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold):
-    f32 = torch.float32
+def _jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold, dtype):
     dev = s1.device
     L = s1.shape[1]
     idx = torch.arange(L, dtype=torch.int64, device=dev)
@@ -126,29 +125,33 @@ def _jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold):
     )
     mismatched = torch.sum(aligned & ~eq, dim=(1, 2))
 
-    mf = m.to(f32)
-    t = (mismatched // 2).to(f32)  # Java integer division
-    zero = torch.zeros((), dtype=f32, device=dev)
+    mf = m.to(dtype)
+    t = (mismatched // 2).to(dtype)  # Java integer division
+    zero = torch.zeros((), dtype=dtype, device=dev)
     jaro = torch.where(
-        m > 0, (mf / l1.to(f32) + mf / l2.to(f32) + (mf - t) / mf) / _three(dev), zero
+        m > 0, (mf / l1.to(dtype) + mf / l2.to(dtype) + (mf - t) / mf) / _three(dev, dtype), zero
     )
     run = torch.cumprod(((s1 == s2) & (idx[None, :] < la[:, None])).to(torch.int64), dim=1)
-    ell = run.sum(dim=1).to(f32)  # NOT capped (jar)
+    ell = run.sum(dim=1).to(dtype)  # NOT capped (jar)
     scale = torch.minimum(
-        torch.tensor(prefix_scale, dtype=f32, device=dev),
-        1.0 / torch.clamp(lb.to(f32), min=1.0),
+        torch.tensor(prefix_scale, dtype=dtype, device=dev),
+        1.0 / torch.clamp(lb.to(dtype), min=1.0),
     )
     boosted = jaro + ell * scale * (1.0 - jaro)
-    below = jaro < torch.tensor(boost_threshold, dtype=f32, device=dev)
+    below = jaro < torch.tensor(boost_threshold, dtype=dtype, device=dev)
     return torch.where(below, jaro, boosted)
 
 
-def jaro_winkler_plain(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None):
+def jaro_winkler_plain(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None,
+                       dtype=torch.float32):
     """Batched Jaro-Winkler, plain PyTorch: s1, s2 (B, L) character codes,
     l1, l2 (B,) lengths -> (B,) float32. Any width and device. With a (B,)
-    bool ``mask``, where(mask, jw, 0), as the masked kernel launch."""
+    bool ``mask``, where(mask, jw, 0), as the masked kernel launch.
+    ``dtype=torch.float64`` evaluates the same expression in float64 (the
+    numerics audit's float64 arm; the kernel computes in float32 only)."""
     sim = _chunked(
-        lambda a, b, c, d: _jaro_winkler_plain(a, b, c, d, prefix_scale, boost_threshold),
+        lambda a, b, c, d: _jaro_winkler_plain(a, b, c, d, prefix_scale, boost_threshold,
+                                               dtype),
         s1, s2, l1, l2,
     )
     if mask is None:
@@ -179,13 +182,13 @@ def levenshtein_plain(s1, s2, l1, l2):
     return _chunked(_levenshtein_plain, s1, s2, l1, l2)
 
 
-def ratio_from_distance(d, l1, l2):
+def ratio_from_distance(d, l1, l2, dtype=torch.float32):
     """levenshtein / mean length (the reference's similarity metric), 0 where
-    both strings are empty; float32, in the reference's order."""
-    f32 = torch.float32
-    denom = (l1.to(f32) + l2.to(f32)) / 2.0
+    both strings are empty; float32 (or ``dtype``), in the reference's
+    order."""
+    denom = (l1.to(dtype) + l2.to(dtype)) / 2.0
     return torch.where(
-        denom > 0, d.to(f32) / denom, torch.zeros((), dtype=f32, device=d.device)
+        denom > 0, d.to(dtype) / denom, torch.zeros((), dtype=dtype, device=d.device)
     )
 
 

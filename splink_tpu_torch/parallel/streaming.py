@@ -38,6 +38,14 @@ def _to_device(a, device, dtype=None):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
+def _batch_stats(G, params: FSParams, max_levels: int, weights=None, compute_ll=False):
+    """One batch's sufficient statistics and, with ``compute_ll``, its log
+    likelihood (else None): the per-batch program of a streamed pass."""
+    p = match_probability(G, params)
+    stats = sufficient_stats(G, p, max_levels, weights)
+    return stats, (log_likelihood(G, params, weights) if compute_ll else None)
+
+
 def run_em_streamed(
     batch_iter_factory: Callable[[], Iterable],
     init: FSParams,
@@ -105,10 +113,10 @@ def run_em_streamed(
             G = _to_device(G, device)
             if w is not None:
                 w = _to_device(w, device, dtype)
-            p = match_probability(G, params)
-            acc = acc + sufficient_stats(G, p, max_levels, w)
+            stats, ll = _batch_stats(G, params, max_levels, w, compute_ll)
+            acc = acc + stats
             if compute_ll:
-                ll_parts.append(log_likelihood(G, params, w))
+                ll_parts.append(ll)
         return acc, ll_parts
 
     for it in range(start_iteration + 1, max_iterations + 1):

@@ -166,6 +166,27 @@ def _on(a, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(a).to(device=device, dtype=dtype)
 
 
+def token_stats(tid_l, tid_r, p, sums, counts):
+    """One chunk's step of the device aggregation, in place: each agreeing
+    pair adds its probability to its token's bucket of ``sums`` and a one
+    to ``counts`` (``index_add_``); disagreeing and null pairs go to the
+    last bucket. Returns (sums, counts)."""
+    agree = (tid_l == tid_r) & (tid_l >= 0)
+    seg = torch.where(agree, tid_l.long(), sums.shape[0] - 1)
+    af = agree.to(sums.dtype)
+    sums.index_add_(0, seg, p * af)
+    counts.index_add_(0, seg, af)
+    return sums, counts
+
+
+def token_gather(tid_l, tid_r, adjusted):
+    """Each pair's adjustment: its token's entry of ``adjusted`` where the
+    pair agrees, 0.5 (no adjustment) elsewhere."""
+    agree = (tid_l == tid_r) & (tid_l >= 0)
+    got = adjusted[torch.clamp(tid_l.long(), 0, adjusted.shape[0] - 1)]
+    return torch.where(agree, got, 0.5)
+
+
 def compute_token_adjustment_device(
     tid_l, tid_r, match_probability, base_lambda, n_tokens: int, device=None
 ):
@@ -191,17 +212,12 @@ def compute_token_adjustment_device(
         z = np.zeros(num_segments)
         return np.zeros(0, np.float64), z, z
     chunk = min(TF_DEVICE_CHUNK, n)
-    last = torch.tensor(num_segments - 1, device=device)
     sums = torch.zeros(num_segments, dtype=dtype, device=device)
     counts = torch.zeros(num_segments, dtype=dtype, device=device)
     for s in range(0, n, chunk):
         cl, cr = _on(tid_l[s:s + chunk], device), _on(tid_r[s:s + chunk], device)
         p = _on(match_probability[s:s + chunk], device, dtype)
-        agree = (cl == cr) & (cl >= 0)
-        seg = torch.where(agree, cl.long(), last)
-        af = agree.to(dtype)
-        sums.index_add_(0, seg, p * af)
-        counts.index_add_(0, seg, af)
+        token_stats(cl, cr, p, sums, counts)
 
     one = torch.ones((), dtype=dtype, device=device)
     base = torch.tensor(base_lambda, dtype=dtype, device=device)
@@ -221,9 +237,7 @@ def compute_token_adjustment_device(
     adj = np.empty(n, np.float64)
     for s in range(0, n, chunk):
         cl, cr = _on(tid_l[s:s + chunk], device), _on(tid_r[s:s + chunk], device)
-        agree = (cl == cr) & (cl >= 0)
-        got = adjusted[torch.clamp(cl.long(), 0, num_segments - 1)]
-        adj[s:s + chunk] = torch.where(agree, got, half).cpu().numpy()
+        adj[s:s + chunk] = token_gather(cl, cr, adjusted).cpu().numpy()
     device_aggregations[device.type] = device_aggregations.get(device.type, 0) + 1
     return adj, tok_lambda.cpu().numpy(), counts.cpu().numpy()
 

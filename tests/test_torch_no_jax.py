@@ -22,7 +22,9 @@ Then the approximate tier (``approx_blocking`` with TF weighting) in
 training and in an index's serving fallback. Last, observability: a run
 with ``telemetry_dir`` and ``profile_dir``, a profiled index (saved and
 loaded) under a sketching engine and a service's drift snapshot, and
-``python -m splink_tpu_torch.obs summarize`` of the run's record.
+``python -m splink_tpu_torch.obs summarize`` of the run's record. Last, the
+measured analysis layers: ``python -m splink_tpu_torch.analysis --audit
+--num-audit --device cpu --kernels em_step,jaro_winkler``.
 """
 
 import os
@@ -69,7 +71,9 @@ for want in ("case_compiler", "ops.qgram", "ops.phonetic", "ops.strings_cuda", "
              "obs.metrics", "approx", "approx.minhash", "approx.lsh", "serve.aot",
              "serve.router", "serve.wire", "serve.remote", "obs.fleet", "obs.exposition",
              "obs.tracer", "utils.envfp", "obs.runtime", "obs.quality", "obs.drift",
-             "obs.cli", "obs.__main__", "utils.profiling"):
+             "obs.cli", "obs.__main__", "utils.profiling", "analysis.findings",
+             "analysis.trace_audit", "analysis.perf_audit", "analysis.num_audit",
+             "analysis.__main__"):
     assert f"splink_tpu_torch.{want}" in names, want
 
 
@@ -246,6 +250,16 @@ with contextlib.redirect_stdout(io.StringIO()) as buf:
     except SystemExit as e:
         assert e.code == 0, e.code
 assert "EM:" in buf.getvalue() and "EM diagnostics" in buf.getvalue(), buf.getvalue()
+# the measured analysis layers: the trace and num audits through the CLI
+sys.argv = ["splink_tpu_torch.analysis", "--audit", "--num-audit", "--device", "cpu",
+            "--kernels", "em_step,jaro_winkler"]
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    try:
+        runpy.run_module("splink_tpu_torch.analysis", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (e.code, buf.getvalue())
+assert "0 finding(s)" in buf.getvalue() and "2 kernel(s) audited" in buf.getvalue(), \
+    buf.getvalue()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok", len(names), len(out))
