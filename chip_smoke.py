@@ -118,8 +118,20 @@ on the card over all 29 registered kernels, against the committed
 finding raises. The ``jaro_winkler`` and ``levenshtein`` entries must
 launch the hand kernels (their records carry the launches, and one call
 of each adds one to ``strings_cuda.launches``); the phase's line lists
-every perf cell's ``execute_ms`` and every kernel's host syncs.
-Every phase prints one JSON line; any failed check raises. The last lines are the
+every perf cell's ``execute_ms`` and every kernel's host syncs. The
+``mesh`` phase, after ``spill``: the main path's job under ``{"data": 1}``
+(a one-shard mesh; gammas unsharded as in the reference's resident regime,
+EM over ``shard_pairs``) against the unsharded main path of the same run
+(equal gamma matrices and pattern counts, parameters and probabilities
+within 4 float32 ulp), the large job under ``{"data": 1}`` (the virtual
+pass sharded, the exact gamma body: dense Jaro-Winkler only) against the
+``large`` phase's counts and parameters, and two processes on the card over
+Gloo (``chip_smoke.py --mesh-rank``), each training the main path's job in
+the forced streamed regime in float64 on its slice of the pairs: equal
+parameters in both, within 1e-12 of one process, a checkpoint from process
+0 only, each process's telemetry tagged with its rank; it prints each
+run's stage seconds, every ``all_sum_stats`` call's ms and each rank's
+peak device bytes. Every phase prints one JSON line; any failed check raises. The last lines are the
 kernel table, the card's name and power limit as nvidia-smi reports them,
 and {"ok": true, "device": {...}}.
 
@@ -1098,6 +1110,295 @@ def large_phase(torch, splink_tpu_torch, strings_cuda, native, gammas, pairgen, 
             out["profile"] = {"error": f"{type(e).__name__}: {e}"[:300]}
     out["large_path_launches"] = out["virtual"]["launches"]
     return out, counts, virt.params.to_arrays()[:3]
+
+
+# ----------------------------------------------------------------------
+# Multi-GPU: the mesh setting and two processes on one card
+# ----------------------------------------------------------------------
+
+# The bound for a {"data": 1} run against the unsharded one, in float32
+# ulps of the unsharded value (stated before the phase's first chip run):
+# with one shard, shard_pairs pads nothing and its weights are all 1.0, so
+# every product and sum is the unsharded run's and 0 ulp is expected.
+MESH_MAX_ULP = 4
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT_S = 300
+MESH_F64_RTOL = 1e-12  # two ranks against one process, float64
+# The reference's facade test forces the streamed regime so that the
+# processes split the pairs (tests/test_multiprocess_em.py): no pattern
+# pipeline (MAX_PATTERNS patched to 1 in each process), a small
+# max_resident_pairs, materialised pairs and the gamma matrix in full.
+MESH_STREAMED = {"max_resident_pairs": 1024, "device_pair_generation": "off",
+                 "overlap_blocking": False, "float64": True}
+
+
+def max_ulp(a, b) -> float:
+    """The largest |a - b| in float32 ulps of b."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float32)
+    return float(np.max(np.abs(a - b.astype(np.float64)) / np.spacing(np.abs(b)))) \
+        if b.size else 0.0
+
+
+def mesh_rank_child(rank: str, world: str, port: str, out_dir: str, rows: str,
+                    device: str) -> int:
+    """One of the mesh phase's processes on the card: joins the group over
+    Gloo (NCCL refuses two ranks on one GPU), trains the main path's job in
+    the forced streamed regime in float64 (its global_pair_slice of the
+    pairs, all_sum_stats per pass, each call timed), a checkpoint
+    directory of its own and a telemetry directory shared with its peer;
+    writes ``rank<k>.json``. ``rows`` and ``device`` are the phase's (the
+    CPU rehearsal runs it small on the CPU)."""
+    import torch
+
+    import splink_tpu_torch
+    import splink_tpu_torch.gammas as gammas
+    from splink_tpu_torch.parallel import distributed as dist
+
+    rank, world = int(rank), int(world)
+    t0 = time.perf_counter()
+    dist.initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    init_s = time.perf_counter() - t0
+    on_card = device == "cuda"
+    reduce_ms = []
+    real_reduce = dist.all_sum_stats
+
+    def timed_reduce(stats):
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_reduce(stats)
+        if on_card:
+            torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    dist.all_sum_stats = timed_reduce
+    gammas.MAX_PATTERNS = 1
+    df, _ = make_people(int(rows), SEED)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    linker = splink_tpu_torch.Splink(
+        {**json.loads(json.dumps(SETTINGS)), **MESH_STREAMED,
+         "telemetry_dir": os.path.join(out_dir, "tel")}, df=df, device=device)
+    linker.estimate_parameters(checkpoint_dir=os.path.join(out_dir, f"ckpt{rank}"))
+    wall = time.perf_counter() - t0
+    linker.close_telemetry()
+    from splink_tpu_torch.ops import strings_cuda
+
+    lam, m, u, _ = linker.params.to_arrays(dtype=np.float64)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"rank": rank, "process_count": dist.process_count(),
+                   "slice": [dist.global_pair_slice(linker._pairs.n_pairs).start,
+                             dist.global_pair_slice(linker._pairs.n_pairs).stop],
+                   "pairs": int(linker._pairs.n_pairs), "init_s": init_s, "wall_s": wall,
+                   "stage_s": dict(linker.stage_seconds), "all_sum_stats_ms": reduce_ms,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                   "lam": float(lam), "m": m.tolist(), "u": u.tolist(),
+                   "em_updates": len(linker.params.param_history),
+                   "variant_launches": dict(strings_cuda.variant_launches)}, fh)
+    return 0
+
+
+def _run_mesh_ranks(out_dir: str, rows: int, device: str) -> list[dict]:
+    """The phase's processes, each with its wall limit; any that fails or
+    outlives it fails the phase with its stderr, after all are stopped."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r), str(MESH_RANKS),
+         str(port), out_dir, str(rows), device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MESH_RANKS)]
+    errors = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=MESH_RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                errors.append(f"rank {r} outlived {MESH_RANK_TIMEOUT_S} s")
+                break
+            if p.returncode != 0:
+                errors.append(f"rank {r} exited {p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errors:
+        raise AssertionError("mesh ranks failed: " + " | ".join(errors))
+    out = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def mesh_phase(torch, splink_tpu_torch, strings_cuda, native, tf, gammas, df, main, big,
+               large_counts, large_params, out_dir, device="cuda"):
+    """The mesh setting on the card. (1) The main path's job under
+    ``{"data": 1}`` (a real one-shard mesh; the resident regime, whose
+    gammas the reference computes unsharded, with EM over shard_pairs)
+    against the unsharded main path of this run: equal gamma matrices and
+    pattern counts, parameters and probabilities within MESH_MAX_ULP. (2)
+    The large job under ``{"data": 1}``: the virtual pattern pass shards
+    its batches and runs the exact gamma body, so only dense Jaro-Winkler
+    launches; equal counts and parameters within MESH_MAX_ULP of the large
+    phase's. (3) Two processes on the card over Gloo, the main path's job
+    in the forced streamed regime in float64: equal lambda in both, within
+    MESH_F64_RTOL of one process on the card; only process 0 writes the
+    checkpoint and each process's telemetry carries its rank. ``main``
+    holds the unsharded main path's gamma matrix, (lambda, m, u),
+    probabilities and pair count. Returns the phase's record, the parent's
+    launches and the dense launches' first inputs. On the CPU (a rehearsal
+    at a small size) the checks that need the card are skipped."""
+    on_card = device == "cuda"
+    out = {}
+    n_pairs = main["pairs"]
+    level_counts = [int(c["num_levels"]) for c in SETTINGS["comparison_columns"]]
+
+    peak_gb = lambda: torch.cuda.max_memory_allocated() / 1e9 if on_card else None  # noqa: E731
+
+    # 1: the main path under {"data": 1}
+    zero_counts(strings_cuda, native, tf)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ml = splink_tpu_torch.Splink({**json.loads(json.dumps(SETTINGS)), "mesh": {"data": 1}},
+                                 df=df, device=device)
+    mdf = ml.get_scored_comparisons()
+    wall = time.perf_counter() - t0
+    launches1 = dict(strings_cuda.launches)
+    variants1 = dict(strings_cuda.variant_launches)
+    if on_card:
+        check_path_counts("the main path under a mesh", strings_cuda, native)
+    if ml._pairs.n_pairs != n_pairs or len(mdf) != n_pairs:
+        raise AssertionError(f"{{'data': 1}} scored {len(mdf)} pairs, the main path {n_pairs}")
+    if not np.array_equal(ml._G, main["G"]):
+        raise AssertionError("{'data': 1} gamma matrix differs from the main path's")
+    counts = [gammas.pattern_counts_from_gammas(G, level_counts, device=device)
+              for G in (ml._G, main["G"])]
+    if not np.array_equal(*counts):
+        raise AssertionError("{'data': 1} pattern counts differ from the main path's")
+    jw1 = {k: v for k, v in variants1.items() if k.startswith("jaro_winkler/")}
+    want_jw = 2 * -(-n_pairs // int(ml.settings["pair_batch_size"]))
+    if on_card and jw1 != {"jaro_winkler/u8/w1/masked": want_jw}:
+        raise AssertionError(f"{{'data': 1}} resident path JW launches {jw1}")
+    ulp1 = {k: max_ulp(a, b) for k, a, b in zip(
+        ("lambda", "m", "u"), ml.params.to_arrays()[:3], main["params"])}
+    mp = mdf["match_probability"].to_numpy()
+    ulp1["match_probability"] = max_ulp(mp, main["p"])
+    rel1 = {k: max_rel_diff(a, b) for k, a, b in zip(
+        ("lambda", "m", "u"), ml.params.to_arrays()[:3], main["params"])}
+    rel1["match_probability"] = max_rel_diff(mp, main["p"])
+    if max(ulp1.values()) > MESH_MAX_ULP:
+        raise AssertionError(f"{{'data': 1}} against the main path: {ulp1} f32 ulp")
+    out["main_data1"] = {
+        "pairs": n_pairs, "wall_s": wall, "stage_s": dict(ml.stage_seconds),
+        "gamma_matrix_equal": True, "pattern_counts_equal": True, "max_ulp": ulp1,
+        "max_rel_diff": rel1, "bound_ulp": MESH_MAX_ULP, "variant_launches": variants1,
+        "jaro_winkler_form": "masked (the reference's resident regime computes gammas "
+                             "unsharded; the mesh shards EM)",
+        "peak_device_mem_gb": peak_gb()}
+    del mdf, ml, mp
+
+    # 2: the large job under {"data": 1}: the sharded virtual pass, dense JW
+    # ("on" is what "auto" takes past max_resident_pairs, and lets the CPU
+    # rehearsal take the pass at a small size)
+    zero_counts(strings_cuda, native, tf)
+    strings_cuda.capture = {}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = splink_tpu_torch.Splink({**json.loads(json.dumps(SETTINGS)), "mesh": {"data": 1},
+                                  "device_pair_generation": "on"}, df=big, device=device)
+    lm.estimate_parameters()
+    wall2 = time.perf_counter() - t0
+    launches2 = dict(strings_cuda.launches)
+    variants2 = dict(strings_cuda.variant_launches)
+    captured, strings_cuda.capture = strings_cuda.capture, None
+    if not lm.device_pair_generation_active:
+        raise AssertionError("the large job under a mesh did not take device pair generation")
+    if not np.array_equal(lm._pattern_counts, large_counts):
+        raise AssertionError("{'data': 1} large pattern counts differ from the unsharded run's")
+    batches = virtual_batches(lm)
+    want2 = {"jaro_winkler/u8/w1": 2 * batches, "levenshtein/u8/w1": batches}
+    if on_card and variants2 != want2:
+        raise AssertionError(f"{{'data': 1}} large launches {variants2}, expected {want2} "
+                             "(dense only)")
+    ulp2 = {k: max_ulp(a, b) for k, a, b in zip(("lambda", "m", "u"),
+                                                 lm.params.to_arrays()[:3], large_params)}
+    if max(ulp2.values()) > MESH_MAX_ULP:
+        raise AssertionError(f"{{'data': 1}} large against unsharded: {ulp2} f32 ulp")
+    pairs2 = int(lm._pattern_counts.sum())
+    out["large_data1"] = {
+        "rows": len(big), "pairs": pairs2, "batches": batches, "wall_s": wall2,
+        "stage_s": dict(lm.stage_seconds), "counts_equal": True, "max_ulp": ulp2,
+        "max_rel_diff": {k: max_rel_diff(a, b) for k, a, b in zip(
+            ("lambda", "m", "u"), lm.params.to_arrays()[:3], large_params)},
+        "variant_launches": variants2,
+        "pattern_pass_pairs_per_s": pairs2 / lm.stage_seconds["gammas_patterns"],
+        "peak_device_mem_gb": peak_gb()}
+    del lm
+
+    # 3: two processes on the card over Gloo, then one process in the same
+    # forced regime
+    rank_dir = os.path.join(out_dir, "mesh_ranks")
+    import shutil
+
+    shutil.rmtree(rank_dir, ignore_errors=True)
+    os.makedirs(rank_dir)
+    t0 = time.perf_counter()
+    ranks = _run_mesh_ranks(rank_dir, len(df), device)
+    ranks_wall = time.perf_counter() - t0
+    saved = gammas.MAX_PATTERNS
+    gammas.MAX_PATTERNS = 1
+    try:
+        t0 = time.perf_counter()
+        one = splink_tpu_torch.Splink({**json.loads(json.dumps(SETTINGS)), **MESH_STREAMED},
+                                      df=df, device=device)
+        one.estimate_parameters()
+        one_wall = time.perf_counter() - t0
+    finally:
+        gammas.MAX_PATTERNS = saved
+    if "em_streamed" not in one.stage_seconds:
+        raise AssertionError(f"the one-process run took no streamed EM: {one.stage_seconds}")
+    lam, m, u, _ = one.params.to_arrays(dtype=np.float64)
+    if ranks[0]["lam"] != ranks[1]["lam"] or ranks[0]["m"] != ranks[1]["m"] \
+            or ranks[0]["u"] != ranks[1]["u"]:
+        raise AssertionError("the two processes ended with different parameters")
+    rel3 = {k: max_rel_diff(ranks[0][k], v) for k, v in (("lam", lam), ("m", m), ("u", u))}
+    if max(rel3.values()) > MESH_F64_RTOL:
+        raise AssertionError(f"two processes against one: {rel3}")
+    s0, s1 = ranks[0]["slice"], ranks[1]["slice"]
+    if not (s0[0] == 0 and s0[1] == s1[0] and s1[1] == n_pairs and ranks[0]["pairs"] == n_pairs):
+        raise AssertionError(f"the processes' slices {s0}, {s1} do not partition {n_pairs}")
+    from splink_tpu_torch.obs.events import read_events
+    from splink_tpu_torch.resilience.checkpoint import load_checkpoint
+
+    ckpts = [load_checkpoint(os.path.join(rank_dir, f"ckpt{r}")) for r in range(MESH_RANKS)]
+    if ckpts[0] is None or ckpts[0].process_count != MESH_RANKS or ckpts[1] is not None:
+        raise AssertionError("process 0 alone must write the checkpoint, with process_count 2")
+    tags = set()
+    for name in os.listdir(os.path.join(rank_dir, "tel")):
+        events = read_events(os.path.join(rank_dir, "tel", name))
+        tags |= {(e["process_index"], e["process_count"]) for e in events}
+    if tags != {(0, MESH_RANKS), (1, MESH_RANKS)}:
+        raise AssertionError(f"telemetry process tags {tags}")
+    out["two_processes"] = {
+        "backend": "gloo", "regime": "streamed (forced, as the reference's facade test)",
+        "pairs": n_pairs, "slices": [s0, s1], "wall_s": ranks_wall,
+        "one_process_wall_s": one_wall, "one_process_stage_s": dict(one.stage_seconds),
+        "lambda_equal": True, "max_rel_diff_vs_one_process": rel3, "rtol": MESH_F64_RTOL,
+        "checkpoint_writer": 0, "telemetry_process_tags": sorted(tags),
+        "ranks": [{k: r[k] for k in ("rank", "init_s", "wall_s", "stage_s", "all_sum_stats_ms",
+                                     "peak_device_bytes", "em_updates", "variant_launches")}
+                  for r in ranks]}
+    launches = {k: launches1[k] + launches2[k] for k in launches1}
+    return out, launches, captured
 
 
 # ----------------------------------------------------------------------
@@ -3436,6 +3737,9 @@ def main() -> int:
          other_p99=p99_other, lambda_=float(linker.params.params["λ"]),
          peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     main_dtypes = [(c, str(t)) for c, t in df_e.dtypes.items()]
+    # what the mesh phase holds its {"data": 1} run to
+    main_for_mesh = {"G": linker._G, "params": linker.params.to_arrays()[:3], "p": p,
+                     "pairs": n_pairs}
     del df_e
 
     # -- the native host library against its plain versions at the main
@@ -3821,10 +4125,28 @@ def main() -> int:
     # -- kill and resume, the spill-fed streamed EM ---------------------------
     emit("spill", **spill_phase(torch, splink_tpu_torch, big, large_counts, large_params,
                                 df, out_dir))
-    del big, big_dup
+
+    # -- multi-GPU: {"data": 1} on the main path and the large job, two
+    # -- processes on the card over Gloo --------------------------------------
+    t0 = time.perf_counter()
+    mesh, mesh_launches, mesh_captured = mesh_phase(
+        torch, splink_tpu_torch, strings_cuda, native, tf, gammas, df, main_for_mesh, big,
+        large_counts, large_params, out_dir)
+    emit("mesh", phase_s=time.perf_counter() - t0, smi=smi, **mesh)
+    del big, big_dup, main_for_mesh
+    rows += [
+        row("jaro_winkler/mesh_dense", "jaro_winkler", mesh_captured["jaro_winkler"], jw_w1,
+            mesh_launches["jaro_winkler"], path="mesh",
+            form="w1, dense: the large job's first batch under {'data': 1} (first_name)"),
+        row("levenshtein/mesh", "levenshtein", mesh_captured["levenshtein"],
+            ["levenshtein/u8/w1"], mesh_launches["levenshtein"], path="mesh",
+            form="w1: the large job's first batch under {'data': 1} (city)"),
+    ]
+    del mesh_captured
     for r in rows:
         if r["name"] in KERNELS:
             r["large_path_launches"] = large["large_path_launches"][r["name"]]
+            r["mesh_path_launches"] = mesh_launches[r["name"]]
 
     # -- every regime on the card at the subset's size -----------------------
     emit("regimes_parity", **regimes_parity(splink_tpu_torch, resilience, sub, out_dir))
@@ -3843,4 +4165,6 @@ if __name__ == "__main__":
         sys.exit(spill_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--aot-child"]:
         sys.exit(aot_child(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_child(*sys.argv[2:8]))
     sys.exit(main())

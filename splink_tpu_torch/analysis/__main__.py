@@ -21,8 +21,8 @@ _NOT_PORTED = {
              "rules, numlint, threadlint), which ROADMAP Queue 1 item 12b ports",
     "--thread-audit": "--thread-audit is threadlint's, which ROADMAP Queue 1 item 12b "
                       "ports",
-    "--shard-audit": "--shard-audit needs the multi-GPU mesh, which ROADMAP Queue 1 "
-                     "item 7 ports",
+    "--shard-audit": "--shard-audit is an analysis layer over the mesh, which ROADMAP "
+                     "Queue 1 item 12b ports",
 }
 
 

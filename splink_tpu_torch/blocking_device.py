@@ -1,11 +1,10 @@
 """Device-native blocking: the sort-join tier on the card.
 
-The port of splink_tpu/blocking_device.py for one device (its mesh
-branches, ``shard_filter`` and the multi-controller spill store are left to
-multi-GPU). The host join in blocking.py stays the fallback and the parity
-oracle; on every shape the plan accepts, this tier emits the reference
-device tier's pairs array for array — the same order, not only the same
-set:
+The port of splink_tpu/blocking_device.py (under a mesh each chunk
+decodes shard by shard, :func:`_emit_chunk_sharded`). The host join in
+blocking.py stays the fallback and the parity oracle; on every shape the
+plan accepts, this tier emits the reference device tier's pairs array for
+array — the same order, not only the same set:
 
   1. segmented sort — one stable ``torch.sort`` of the composite int64 key
      ``key << 32 | side << 31 | rank`` (null keys remapped to int32 max)
@@ -174,19 +173,24 @@ class DeviceBlockPlan:
     device: torch.device
     res_ops: list[np.ndarray] = field(default_factory=list)
     chunk: int = CHUNK  # unit extent bound (the reference's)
-    # device copies of the plan's arrays, uploaded at the first emission
-    _device_arrays: dict | None = field(default=None, repr=False)
+    # device copies of the plan's arrays, uploaded at the first emission on
+    # each device
+    _device_arrays: dict = field(default_factory=dict, repr=False)
 
     @property
     def n_candidates(self) -> int:
         return sum(rp.total for rp in self.rules)
 
-    def on_device(self) -> dict:
-        if self._device_arrays is None:
+    def on_device(self, device: torch.device | None = None) -> dict:
+        """The plan's arrays on ``device`` (the plan's own by default; a
+        mesh shard's otherwise), uploaded at first use."""
+        device = self.device if device is None else device
+        key = str(device)
+        if key not in self._device_arrays:
             def up(a, dt=None):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(device=self.device, dtype=dt)
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
 
-            self._device_arrays = {
+            self._device_arrays[key] = {
                 "ranks": up(self.ranks),
                 "codes_l": up(self.codes_l),
                 "codes_r": up(self.codes_r),
@@ -199,7 +203,7 @@ class DeviceBlockPlan:
                     for rp in self.rules
                 ],
             }
-        return self._device_arrays
+        return self._device_arrays[key]
 
 
 def _plan_or_reason(settings: dict, table: EncodedTable, n_left: int | None,
@@ -339,24 +343,38 @@ def chunk_digest_compact(i_ext: torch.Tensor, j: torch.Tensor,
     return chunk_digest(i_ext[:b], j[:b], pos[:b] < i_ext[b])
 
 
-def _emission_context(plan: DeviceBlockPlan, batch_size: int) -> dict:
+def _emission_context(plan: DeviceBlockPlan, batch_size: int, mesh=None) -> dict:
     """What both emission drivers share: the int32-safe batch clamp (the
-    reference's, so chunk boundaries are its boundaries), the device
-    arrays, and where survivors compact (on the card; on the CPU the host
-    compacts, as the reference does on its CPU backend)."""
+    reference's, so chunk boundaries are its boundaries), mesh padding, the
+    device arrays, and where survivors compact (on the card; on the CPU
+    and under a mesh the host compacts, as the reference does)."""
     safe = (1 << 31) - 1 - plan.chunk * plan.chunk
+    batch_size = min(max(int(batch_size), 64), safe)
+    if mesh is not None:
+        from .parallel.mesh import pad_to_multiple
+
+        batch_size = pad_to_multiple(batch_size, mesh.size)
+        if batch_size > safe:
+            batch_size = max(safe // mesh.size, 1) * mesh.size
     return {
-        "batch_size": min(max(int(batch_size), 64), safe),
-        "compact_dev": plan.device.type == "cuda",
+        "batch_size": batch_size,
+        "compact_dev": mesh is None and plan.device.type == "cuda",
         "arrs": plan.on_device(),
+        "mesh": mesh,
         "pos": {},
     }
 
 
 def _rule_batch(ctx: dict, rp: DeviceRule) -> int:
     """A rule's chunk: clamped to the next power of two >= its total, so a
-    small rule does not pad to a multi-M batch."""
-    return min(ctx["batch_size"], _pow2(max(rp.total, 64)))
+    small rule does not pad to a multi-M batch (then padded to a mesh
+    multiple under a mesh)."""
+    bs = min(ctx["batch_size"], _pow2(max(rp.total, 64)))
+    if ctx["mesh"] is not None:
+        from .parallel.mesh import pad_to_multiple
+
+        bs = pad_to_multiple(bs, ctx["mesh"].size)
+    return bs
 
 
 def _keep_mask(plan: DeviceBlockPlan, r: int, arrs: dict, i, j):
@@ -399,7 +417,10 @@ def _emit_chunk(plan: DeviceBlockPlan, r: int, ctx: dict, bs: int, p0: int, p1: 
     ``[i (bs) | count | j (bs) | digest]`` with the survivors compacted to
     the leading lanes by a cumsum and a scatter (masked lanes write the
     count's and the digest's lanes, which are then overwritten). On the
-    CPU: (tag, (i, j, digest | None)) host arrays, compacted on the host."""
+    CPU: (tag, (i, j, digest | None)) host arrays, compacted on the host.
+    Under a mesh, :func:`_emit_chunk_sharded`."""
+    if ctx["mesh"] is not None:
+        return _emit_chunk_sharded(plan, r, ctx, bs, p0, p1, digest)
     arrs = ctx["arrs"]
     ra = arrs["rules"][r]
     device = plan.device
@@ -431,6 +452,39 @@ def _emit_chunk(plan: DeviceBlockPlan, r: int, ctx: dict, bs: int, p0: int, p1: 
         d = chunk_digest_compact(buf[: bs + 1], buf[bs + 1 : 2 * bs + 1], pos)
         buf[2 * bs + 1 : 2 * bs + 2] = torch.where(d >= 1 << 31, d - (1 << 32), d)
     return ("packed", bs, digest), buf
+
+
+def _emit_chunk_sharded(plan: DeviceBlockPlan, r: int, ctx: dict, bs: int, p0: int,
+                        p1: int, digest: bool):
+    """:func:`_emit_chunk` under a mesh: the chunk's positions split into
+    the mesh's equal pieces, piece k decoded and masked on shard k's device
+    (no collective: each shard searches the replicated unit tables), and
+    the host compacts each shard's survivors, in shard order, so the pairs
+    are the unsharded chunk's. The transfer digest is the sum of the
+    shards' digests mod 2^32 (the reference's psum of the lane mixes);
+    every chunk carries one, as every mesh chunk has a keep mask there."""
+    from .parallel.mesh import reduce_shards, shard_ranges
+
+    mesh = ctx["mesh"]
+    parts_i, parts_j, digs = [], [], []
+    for k, (lo, hi) in enumerate(shard_ranges(mesh, p0, p1, bs)):
+        if hi <= lo:
+            continue
+        dev = mesh.devices[k]
+        arrs = plan.on_device(dev)
+        ra = arrs["rules"][r]
+        q = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        i, j = unit_decode(q, ra["order"], *ra["units"], ra["pc"])
+        keep = _keep_mask(plan, r, arrs, i, j)
+        if keep is None:
+            keep = torch.ones(q.shape, dtype=torch.bool, device=dev)
+        if digest:
+            digs.append(chunk_digest(i, j, keep))
+        kh = keep.cpu().numpy()
+        parts_i.append(i.to(torch.int32).cpu().numpy()[kh])
+        parts_j.append(j.to(torch.int32).cpu().numpy()[kh])
+    dig = int(reduce_shards(digs)) & _U32 if digest else None
+    return ("host",), (np.concatenate(parts_i), np.concatenate(parts_j), dig)
 
 
 def _unpack(tag, host: np.ndarray):
@@ -486,12 +540,14 @@ class _Chunks:
             self._downloads.clear()
 
 
-def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int):
+def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int, mesh=None):
     """Drive the emission over every rule, yielding ``(rule_index, i, j)``
     host int32 chunks of at most ``batch_size`` pairs in rule order (the
     order the host sink sees), each rule in chunks of
     ``min(batch_size, next power of two >= its total)`` positions. On the
     card a chunk's copy off the device overlaps the next chunks' decode.
+    With ``mesh`` each chunk's decode shards over the mesh and the host
+    compacts (:func:`_emit_chunk_sharded`): the same pairs.
     Ends with one logger line of the emission's counts and rate and one
     ambient ``blocking_device`` event with the reference's fields (the
     copy ring's occupancy is not sampled: those two fields are null)."""
@@ -499,7 +555,7 @@ def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int):
 
     if plan.n_candidates == 0:
         return
-    ctx = _emission_context(plan, batch_size)
+    ctx = _emission_context(plan, batch_size, mesh)
     chunks = _Chunks(plan.device, ctx["compact_dev"])
     stats = {"chunks": 0, "submitted": 0, "pairs": 0, "candidates": 0,
              "fill_sum": 0.0, "completed": False}
@@ -632,7 +688,8 @@ def _shard_unit_ranges(pc: np.ndarray, n_shards: int) -> list[tuple[int, int]]:
 
 
 def emit_pairs_sharded(plan: DeviceBlockPlan, store, batch_size: int, n_shards: int = 1,
-                       budget: int | None = None, fault_plan=None) -> dict:
+                       mesh=None, budget: int | None = None, fault_plan=None,
+                       shard_filter: tuple[int, int] | None = None) -> dict:
     """Drive the sharded, resumable emission of ``plan`` into a
     :class:`~.spill.PairSpillStore`.
 
@@ -651,7 +708,15 @@ def emit_pairs_sharded(plan: DeviceBlockPlan, store, batch_size: int, n_shards: 
     segment truncating exactly at the envelope; under a budget chunks drain
     one by one, so the stop decision depends only on committed counts and a
     resumed run commits the same segments. The fault site ``emit_segment``
-    fires between a segment's byte append and its manifest commit.
+    fires between a segment's byte append and its manifest commit. With
+    ``mesh`` each chunk's decode shards over the mesh
+    (:func:`_emit_chunk_sharded`).
+
+    ``shard_filter=(p, P)`` emits only the shards with ``shard % P == p``:
+    the multi-process partition, each process driving its own subset of
+    every rule's shards into its own store (the spill-fed EM's
+    cross-process stats reduction makes the union one global pair set).
+    ``budget`` is then enforced per process, against this driver's store.
 
     Returns a stats dict (segments, skipped, pairs, exhausted) and
     publishes it as one ambient ``blocking_spill`` event. The caller
@@ -661,7 +726,7 @@ def emit_pairs_sharded(plan: DeviceBlockPlan, store, batch_size: int, n_shards: 
 
     if fault_plan is None:
         fault_plan = _faults.active_plan()
-    ctx = _emission_context(plan, batch_size)
+    ctx = _emission_context(plan, batch_size, mesh)
     chunks = _Chunks(plan.device, ctx["compact_dev"])
     stats = {"segments": 0, "skipped": 0, "pairs": 0, "exhausted": False}
     # a resumed store already carries pairs toward the budget envelope
@@ -690,7 +755,8 @@ def emit_pairs_sharded(plan: DeviceBlockPlan, store, batch_size: int, n_shards: 
                 continue
             bs = _rule_batch(ctx, rp)
             for s_idx, (lo, hi) in enumerate(_shard_unit_ranges(rp.pc, n_shards)):
-                if hi <= lo:
+                if hi <= lo or (shard_filter is not None
+                                and s_idx % shard_filter[1] != shard_filter[0]):
                     continue
                 base, end = int(rp.pc[lo]), int(rp.pc[hi])
                 for k, p0 in enumerate(range(base, end, bs)):
@@ -737,8 +803,12 @@ def spill_block_rules(settings: dict, table: EncodedTable, n_left: int | None,
 
     A store already finalized for this exact job returns at once (the
     idempotent restart a relaunch loop needs); a half-built one resumes
-    from its last committed segment. One process: the store is
-    ``build_dir`` itself (no per-process subdirectory)."""
+    from its last committed segment. Without ``emit_shard_chunks`` the
+    rules split into (mesh size) x (process count) shards; under several
+    processes each emits its own shards (``shard_filter``) into the
+    per-process store its caller names (``distributed.spill_shard_dir``)."""
+    from .parallel.distributed import distributed_is_initialized, process_count, process_index
+    from .parallel.mesh import mesh_from_settings
     from .resilience.checkpoint import settings_state_hash
     from .spill import PairSpillStore
 
@@ -747,7 +817,14 @@ def spill_block_rules(settings: dict, table: EncodedTable, n_left: int | None,
     if plan is None:
         logger.info("spill emission: no device plan (%s)", reason)
         return None
-    n_shards = int(settings.get("emit_shard_chunks") or 0) or 1
+    p_idx, p_cnt = 0, 1
+    if distributed_is_initialized():
+        p_idx, p_cnt = process_index(), process_count()
+    mesh = mesh_from_settings(settings, device)
+    n_shards = int(settings.get("emit_shard_chunks") or 0)
+    if n_shards <= 0:
+        n_shards = (mesh.size if mesh is not None else 1) * p_cnt
+    n_shards = max(n_shards, p_cnt)
     batch = int(settings.get("blocking_chunk_pairs") or DEFAULT_CHUNK_PAIRS)
     meta = {
         "state_hash": settings_state_hash(
@@ -755,8 +832,8 @@ def spill_block_rules(settings: dict, table: EncodedTable, n_left: int | None,
         "n_shards": n_shards,
         "chunk_pairs": batch,
         "budget": budget,
-        "process_index": 0,
-        "process_count": 1,
+        "process_index": p_idx,
+        "process_count": p_cnt,
         "rule_totals": [int(rp.total) for rp in plan.rules],
     }
     store = PairSpillStore.attach(os.path.join(build_dir, "pairs"),
@@ -766,7 +843,9 @@ def spill_block_rules(settings: dict, table: EncodedTable, n_left: int | None,
                     store.directory, store.total_pairs)
         return store.as_pair_index()
     with store:
-        stats = emit_pairs_sharded(plan, store, batch, n_shards=n_shards, budget=budget)
+        stats = emit_pairs_sharded(plan, store, batch, n_shards=n_shards, mesh=mesh,
+                                   budget=budget,
+                                   shard_filter=None if p_cnt == 1 else (p_idx, p_cnt))
     store.finalize(exhausted=stats["exhausted"])
     logger.info("spill emission: %d pairs in %d segments (%d resumed) at %s",
                 store.total_pairs, len(store.segments), stats["skipped"], store.directory)

@@ -38,6 +38,8 @@ from .models.fellegi_sunter import (
     sufficient_stats,
     update_params,
 )
+from .parallel.distributed import process_count, process_index
+from .parallel.mesh import Sharded, reduce_shards
 
 
 class EMResult(NamedTuple):
@@ -63,6 +65,10 @@ def run_em(
     telemetry=None,
 ) -> EMResult:
     """Run EM to convergence on the device ``G`` lives on.
+
+    ``G`` may be sharded over a mesh (``parallel.mesh.shard_pairs``, with
+    its padding ``weights``): each shard's sufficient statistics are then
+    computed on its device and summed on the first one in shard order.
 
     Convergence matches the reference: the largest absolute change across
     all pi probabilities (lambda excluded) must drop below
@@ -90,13 +96,15 @@ def run_em(
     params = init
     it = 0
     converged = False
+    shards, w_shards = _shards_of(G, weights)
     if max_iterations > 0:
-        design = level_design(G, max_levels, dtype)
+        designs = [level_design(g, max_levels, dtype) for g in shards]
     while it < max_iterations and not converged:
-        p = match_probability(G, params)
-        new = update_params(
-            sufficient_stats(G, p, max_levels, weights, design)
-        )
+        on_shards = _replicate(params, shards)
+        new = update_params(reduce_shards([
+            sufficient_stats(g, match_probability(g, p), max_levels, w, d)
+            for g, w, d, p in zip(shards, w_shards, designs, on_shards)
+        ]))
         delta = torch.maximum(
             torch.max(torch.abs(new.m - params.m)),
             torch.max(torch.abs(new.u - params.u)),
@@ -105,7 +113,7 @@ def run_em(
         if compute_ll:
             # ll under the PRE-update params, archived at the pre-update
             # index (the reference computes it in the E-step)
-            ll_pre = log_likelihood(G, params, weights)
+            ll_pre = _log_likelihood(shards, w_shards, on_shards)
         converged = bool(delta < tol)  # the one host read per update
         if on_update is not None:
             on_update(it + 1, new, ll_pre, converged)
@@ -115,7 +123,7 @@ def run_em(
         lam_h[it], m_h[it], u_h[it] = new.lam, new.m, new.u
         params = new
     if compute_ll:
-        ll_h[it] = log_likelihood(G, params, weights)
+        ll_h[it] = _log_likelihood(shards, w_shards, _replicate(params, shards))
     return EMResult(
         params=params,
         n_updates=it,
@@ -125,6 +133,25 @@ def run_em(
         u_history=u_h.cpu().numpy(),
         ll_history=ll_h.cpu().numpy(),
     )
+
+
+def _shards_of(G, weights):
+    """(gamma shards, weight shards): a :class:`~.parallel.mesh.Sharded`
+    ``G`` (from ``shard_pairs``) per shard, a tensor as one shard."""
+    if isinstance(G, Sharded):
+        w = weights.shards if isinstance(weights, Sharded) else (None,) * len(G.shards)
+        return G.shards, w
+    return (G,), (weights,)
+
+
+def _replicate(params: FSParams, shards) -> list[FSParams]:
+    """The parameters on each shard's device (no copy where they are)."""
+    return [FSParams(*(t.to(g.device) for t in params)) for g in shards]
+
+
+def _log_likelihood(shards, w_shards, on_shards):
+    return reduce_shards([log_likelihood(g, p, w)
+                          for g, w, p in zip(shards, w_shards, on_shards)])
 
 
 def _with_telemetry(on_update, telemetry, compute_ll: bool):
@@ -260,8 +287,13 @@ def run_em_checkpointed(
     # restart point, so _save records what it persisted
     last_saved = {"iteration": None}
 
+    # single-writer directory under multi-controller runs: every process
+    # computes the same trajectory (the EM stats are globally reduced), so
+    # only process 0 persists it
+    is_writer = process_count() == 1 or process_index() == 0
+
     def _save(iteration, conv):
-        if checkpoint_dir is None:
+        if checkpoint_dir is None or not is_writer:
             return
         save_checkpoint(
             checkpoint_dir,
@@ -283,7 +315,7 @@ def run_em_checkpointed(
                     ),
                 },
                 converged=conv,
-                process_count=1,
+                process_count=process_count(),
                 dtype=np_dtype.name,
             ),
         )

@@ -616,6 +616,17 @@ def pattern_histogram(ids: torch.Tensor, length: int) -> torch.Tensor:
     return torch.bincount(ids, minlength=length)
 
 
+def gather_shard_ids(parts: list, n_patterns: int, device) -> tuple:
+    """(ids, (n_patterns + 1,) histogram) on ``device`` of a mesh batch's
+    per-shard id tensors: the ids in shard order, the shards' histograms
+    summed in shard order (the mesh pattern passes' reduction)."""
+    from .parallel.mesh import reduce_shards
+
+    hist = reduce_shards([pattern_histogram(p, n_patterns + 1) for p in parts])
+    pid = parts[0].to(device) if len(parts) == 1 else torch.cat([p.to(device) for p in parts])
+    return pid, hist.to(device)
+
+
 def pattern_ids_fit_uint16(n_patterns: int) -> bool:
     """True when every pattern id AND the mask sentinel (== n_patterns)
     fit uint16: the one predicate deciding both the device-side narrowing
@@ -712,6 +723,11 @@ class _Downloads:
         self._queue.clear()
 
 
+def _index_tensor(a, device) -> torch.Tensor:
+    """Host pair indices as an int64 tensor on ``device``."""
+    return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+
 class GammaProgram:
     """Gamma computation bound to one encoded table on one device: ``cuda``
     unless ``device`` names another; raises when that is CUDA and no CUDA
@@ -743,20 +759,67 @@ class GammaProgram:
             torch.tensor(strides, dtype=torch.int32, device=self.device)
             if self.n_patterns <= MAX_PATTERNS else None
         )
+        self._mesh_kernels: dict = {}
 
     def gamma_batch(self, idx_l, idx_r) -> torch.Tensor:
         """(b, n_cols) int8 gammas for index tensors on the program's device."""
+        return self._gammas(self._packed, idx_l, idx_r, self.two_phase)
+
+    def _gammas(self, packed, idx_l, idx_r, two_phase: bool) -> torch.Tensor:
+        """The gamma body over ``packed`` (the table on the indices'
+        device); ``two_phase`` False is the exact body, dense Jaro-Winkler
+        over every pair."""
         ctx = PairContext(
-            self._layout,
-            self._packed.index_select(0, idx_l),
-            self._packed.index_select(0, idx_r),
+            self._layout, packed.index_select(0, idx_l), packed.index_select(0, idx_r)
         )
-        return torch.stack(
-            [_spec_gamma(c, ctx, self.two_phase) for c in self._cols], dim=1
-        )
+        return torch.stack([_spec_gamma(c, ctx, two_phase) for c in self._cols], dim=1)
+
+    def _pattern_batch_for_mesh(self, mesh):
+        """The per-shard pattern kernel of a mesh pass: fn(k, il, ir,
+        masked=None) -> the int32 pattern ids of shard k's pairs (index
+        tensors on its device), the sentinel ``n_patterns`` where
+        ``masked`` holds. Mesh kernels compose the EXACT gamma body:
+        two-phase survivor compaction is a single-device optimisation in
+        the reference (a prefix sum along the sharded pair axis), so every
+        shard runs the dense Jaro-Winkler. Cached per Mesh value, with the
+        table and strides replicated on the mesh."""
+        from .parallel.mesh import replicated
+
+        cache = self._mesh_kernels
+        if mesh not in cache:
+            self._require_patterns()
+            packed = replicated(mesh, self._packed)
+            strides = replicated(mesh, self._strides_dev)
+
+            def fn(k, il, ir, masked=None):
+                pid = _pattern_ids(self._gammas(packed[k], il, ir, False), strides[k])
+                if masked is None:
+                    return pid
+                return torch.where(masked, torch.full_like(pid, self.n_patterns), pid)
+
+            cache[mesh] = fn
+        return cache[mesh]
+
+    def _mesh_pattern_context(self, mesh, batch_size: int):
+        """run_batch(bl, br) -> (ids, histogram) on the program's device for
+        one host batch of at most ``batch_size`` (a mesh multiple) pairs:
+        shard k takes the k-th of the batch's equal pieces, as far as the
+        batch's real pairs reach (:func:`gather_shard_ids`)."""
+        from .parallel.mesh import shard_ranges
+
+        fn = self._pattern_batch_for_mesh(mesh)
+
+        def run_batch(bl, br):
+            parts = [fn(k, _index_tensor(bl[lo:hi], mesh.devices[k]),
+                        _index_tensor(br[lo:hi], mesh.devices[k]))
+                     for k, (lo, hi) in enumerate(shard_ranges(mesh, 0, len(bl), batch_size))
+                     if hi > lo]
+            return gather_shard_ids(parts, self.n_patterns, self.device)
+
+        return run_batch
 
     def _to_device(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+        return _index_tensor(a, self.device)
 
     # ------------------------------------------------------------------
     # The pattern-id pipeline
@@ -792,12 +855,16 @@ class GammaProgram:
         to."""
         return patterns_matrix_for(self.level_counts)
 
-    def compute_pattern_ids(self, idx_l, idx_r, batch_size: int = DEFAULT_PAIR_BATCH):
+    def compute_pattern_ids(self, idx_l, idx_r, batch_size: int = DEFAULT_PAIR_BATCH,
+                            mesh=None):
         """One pass over the pair set: (pattern_ids, counts). pattern_ids is
         (n,) uint16 when the pattern space allows (int32 otherwise); counts
-        is the (n_patterns,) int64 histogram."""
+        is the (n_patterns,) int64 histogram. With ``mesh`` each batch
+        shards over the mesh's data axis (:meth:`_pattern_batch_for_mesh`):
+        the same ids and counts, per-device work divided by the mesh
+        size."""
         self._require_patterns()
-        stream = PatternStream(self, batch_size)
+        stream = PatternStream(self, batch_size, mesh=mesh)
         for s in range(0, len(idx_l), max(batch_size, 1)):
             stream.feed(np.asarray(idx_l[s : s + batch_size]),
                         np.asarray(idx_r[s : s + batch_size]))
@@ -964,10 +1031,18 @@ class PatternStream(_StreamBatcher):
     """Incremental pattern-id pipeline: feed pair chunks, finish() returns
     (pattern_ids, counts) as compute_pattern_ids would. The gamma matrix
     never materialises, and the device pass runs WHILE blocking still
-    does instead of as a second sweep over the pair index."""
+    does instead of as a second sweep over the pair index. With ``mesh``
+    the batch size pads to a mesh multiple and each batch shards over the
+    mesh (GammaProgram._mesh_pattern_context)."""
 
-    def __init__(self, program: GammaProgram, batch_size: int):
+    def __init__(self, program: GammaProgram, batch_size: int, mesh=None):
         program._require_patterns()
+        self._run_batch = None
+        if mesh is not None:
+            from .parallel.mesh import pad_to_multiple
+
+            batch_size = pad_to_multiple(batch_size, mesh.size)
+            self._run_batch = program._mesh_pattern_context(mesh, batch_size)
         super().__init__(batch_size)
         self.program = program
         self.id_dtype = program.id_dtype
@@ -978,8 +1053,12 @@ class PatternStream(_StreamBatcher):
 
     def _emit(self, bl, br):
         p = self.program
-        pid = p.pattern_ids(p.gamma_batch(p._to_device(bl), p._to_device(br)))
-        self._counts += pattern_histogram(pid, p.n_patterns + 1)
+        if self._run_batch is not None:
+            pid, hist = self._run_batch(bl, br)
+            self._counts += hist
+        else:
+            pid = p.pattern_ids(p.gamma_batch(p._to_device(bl), p._to_device(br)))
+            self._counts += pattern_histogram(pid, p.n_patterns + 1)
         self._downloads.submit(p.narrow_ids(pid))
         self._parts.extend(host for _, host in self._downloads.ready())
 

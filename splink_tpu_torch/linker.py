@@ -39,9 +39,16 @@ warning), as the reference does.
 
 Device rule: with no ``device`` the linker runs on ``cuda`` and raises when
 no CUDA device exists; it never carries on quietly on the CPU. Pass
-``device="cpu"`` to run the plain PyTorch versions on the CPU. Settings
-that need a module not ported yet raise NotImplementedError naming its
-ROADMAP.md item.
+``device="cpu"`` to run the plain PyTorch versions on the CPU.
+
+Multi-GPU (parallel/): ``mesh`` ``{"data": N}`` shards the pair axis over
+N devices of the linker's type — resident EM over ``shard_pairs``, the
+pattern passes (virtual and materialised) and the spill emission shard by
+shard, with the exact gamma body in the pattern passes. Under several
+processes (``parallel.distributed.initialize_multihost``) the streamed
+regime feeds each process its ``global_pair_slice`` and reduces each
+pass's statistics with ``all_sum_stats``; checkpoints are written by
+process 0 only and a resume checks that every process agrees on it.
 
 Observability (obs/, utils/profiling.py), as in the reference: every stage
 runs under a ``StageTimer`` of this linker's run scope (``run_id``), which
@@ -78,6 +85,8 @@ from .em import (
 )
 from .gammas import GammaProgram
 from .obs.runtime import RunContext
+from .parallel.distributed import global_pair_slice, process_count, process_index
+from .parallel.mesh import mesh_from_settings, shard_pairs
 from .params import Params, fsparams_from_numpy, load_params_from_json
 from .settings import comparison_column_name, complete_settings_dict
 from .term_frequencies import (
@@ -102,22 +111,6 @@ try:  # pandas is required for the linker facade (not for the kernels)
     import pandas as pd
 except ImportError:  # pragma: no cover
     pd = None
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} needs {item} (ROADMAP.md), which splink_tpu_torch does not "
-        "port yet"
-    )
-
-
-def _check_ported_settings(settings: dict) -> None:
-    """Raise for every setting that needs a module not ported yet."""
-    for key, item in (
-        ("mesh", "multi-GPU, Queue 1 item 7"),
-    ):
-        if settings.get(key):
-            raise _not_ported(f"a non-empty {key!r}", item)
 
 
 def _gamma_histograms(settings, G, weights=None, chunk: int = 1 << 22,
@@ -177,7 +170,6 @@ class Splink:
         """
         self.device = resolve_device(device)
         self.settings = complete_settings_dict(settings)
-        _check_ported_settings(self.settings)
         self.params = Params(self.settings, complete=False)
         self.df = df
         self.df_l = df_l
@@ -296,28 +288,25 @@ class Splink:
         )
 
     def _load_validated_checkpoint(self, ckpt_dir, state_hash, resume):
-        """Hash-checked load of the checkpoint to resume from, or None.
-        Resume with no checkpoint on disk yet is the normal first launch of
-        a relaunch loop, so it warns and trains fresh. A checkpoint written
-        by a run of several processes is refused: this package runs one."""
+        """Resume's load and validation, shared by the fused and streamed
+        paths: hash-checked load, cross-process presence agreement, then
+        topology validation. Returns the checkpoint or None. Resume with
+        no checkpoint on disk yet is the normal first launch of a relaunch
+        loop, so it warns and trains fresh."""
         if not resume:
             return None
+        from .parallel.distributed import validate_resume_presence, validate_resume_topology
         from .resilience.checkpoint import load_checkpoint
 
         ckpt = load_checkpoint(ckpt_dir, expect_hash=state_hash)
+        validate_resume_presence(ckpt is not None)
         if ckpt is None:
             logger.warning(
                 "resume=True but no checkpoint exists in %s yet; training "
                 "from scratch (first launch of a relaunch loop?)", ckpt_dir,
             )
             return None
-        if int(ckpt.process_count) != 1:
-            raise RuntimeError(
-                f"checkpoint in {ckpt_dir} was written by a run of "
-                f"{ckpt.process_count} processes; splink_tpu_torch resumes "
-                "single-process runs only (multi-GPU is ROADMAP.md Queue 1 "
-                "item 7)"
-            )
+        validate_resume_topology(ckpt.process_count, state_hash, ckpt.iteration)
         return ckpt
 
     def _em_state_hash(self) -> str:
@@ -369,10 +358,11 @@ class Splink:
                 # consistently; EM reads the store afterwards instead.
                 from .blocking import clear_key_code_cache
                 from .blocking_device import spill_block_rules
+                from .parallel.distributed import spill_shard_dir
 
                 with self._timed("blocking"):
-                    pairs = spill_block_rules(self.settings, table, self._n_left, build_dir,
-                                              device=self.device)
+                    pairs = spill_block_rules(self.settings, table, self._n_left,
+                                              spill_shard_dir(build_dir), device=self.device)
                 if pairs is not None:
                     self._pairs = pairs
                     logger.info("blocking produced %d candidate pairs (spill store)",
@@ -416,12 +406,14 @@ class Splink:
         The regime is chosen BEFORE blocking from the O(n) pair-count
         bound: resident-size jobs stream the gamma matrix and keep it on
         the device for EM; larger jobs with pattern-capable settings stream
-        pattern ids. Everything else takes GammaStream."""
+        pattern ids (sharded over the mesh, when there is one). Everything
+        else takes GammaStream."""
         if not self.settings.get("overlap_blocking", True):
             return None
         from .gammas import GammaStream, PatternStream
 
         program = self._gamma_program()
+        mesh = self._mesh()
         max_resident = int(self.settings["max_resident_pairs"])
         bound = self._estimate_pair_bound(table)
         # clamp the device batch to the job bound, so that a small job does
@@ -430,8 +422,10 @@ class Splink:
         batch = max(min(batch, -(-max(bound, 1) // 8) * 8), 1024)
         if bound > max_resident and self._pattern_capable():
             self._pattern_program = program
-            return PatternStream(program, batch)
-        return GammaStream(program, batch, keep_device_limit=max_resident)
+            return PatternStream(program, batch, mesh=self._pattern_mesh())
+        # a mesh shards its own upload of the gamma matrix
+        keep_limit = max_resident if mesh is None else 0
+        return GammaStream(program, batch, keep_device_limit=keep_limit)
 
     def _finish_overlap(self, stream) -> None:
         from .gammas import PatternStream
@@ -455,6 +449,19 @@ class Splink:
     def _ensure_gammas(self) -> np.ndarray:
         if self._G is None:
             pairs = self._ensure_pairs()  # the overlap may set _G or _P here
+            if self._multihost_spill_store(pairs) is not None:
+                # this process's store holds ONLY its shard subset: a gamma
+                # matrix over it would feed scoring and EM paths that assume
+                # the FULL pair set. Training is supported (estimate_parameters
+                # routes to the manifest-fed streamed EM with the
+                # cross-process reduction); scoring is single-process.
+                raise RuntimeError(
+                    "this pair index is a per-process spill shard subset "
+                    "(multi-controller emission): scoring APIs need the "
+                    "full pair set and are single-controller — train with "
+                    "estimate_parameters here, then score in a "
+                    "single-process run over the saved model"
+                )
             if self._G is not None:
                 return self._G
             if self._P is not None:
@@ -464,7 +471,11 @@ class Splink:
                 with self._timed("gammas"):
                     self._G = self._pattern_program.patterns_matrix()[self._P]
                 return self._G
-            keep = pairs.n_pairs <= int(self.settings["max_resident_pairs"])
+            # in the resident regime (and without a mesh, which shards its
+            # own upload) keep the device batches, so EM does not upload
+            # the matrix just computed there again
+            keep = (pairs.n_pairs <= int(self.settings["max_resident_pairs"])
+                    and self._mesh() is None)
             program = self._gamma_program()
             with self._timed("gammas"):
                 self._G, self._G_dev = program.compute_with_device(
@@ -495,7 +506,8 @@ class Splink:
     def _pattern_capable(self) -> bool:
         """Bounded pattern space and no custom comparison (a registered
         function could emit gammas outside [-1, num_levels-1], which would
-        alias pattern ids)."""
+        alias pattern ids). A mesh does not disqualify: the virtual and the
+        materialised pattern passes shard their batches over it."""
         from .gammas import MAX_PATTERNS, pattern_strides_for
 
         for c in self.settings["comparison_columns"]:
@@ -576,7 +588,40 @@ class Splink:
             return True
         if not self._pattern_capable():
             return False
-        return self._ensure_pairs().n_pairs > int(self.settings["max_resident_pairs"])
+        pairs = self._ensure_pairs()
+        if self._multihost_spill_store(pairs) is not None:
+            # a per-process store's n_pairs is LOCAL and differs per
+            # process: a count-dependent choice could put processes on
+            # different EM paths (one in a collective, one not). The
+            # manifest-fed streamed driver is the one multi-process path
+            # for these stores (process_count is in every store's meta)
+            return False
+        return pairs.n_pairs > int(self.settings["max_resident_pairs"])
+
+    @staticmethod
+    def _multihost_spill_store(pairs):
+        """The pair index's spill store when it was written under
+        multi-process emission (so holds only this process's shard
+        subset), else None."""
+        store = getattr(pairs, "spill_store", None)
+        if store is not None and int(store.meta.get("process_count", 1) or 1) > 1:
+            return store
+        return None
+
+    def _mesh(self):
+        """The settings' mesh on this linker's device type, or None."""
+        return mesh_from_settings(self.settings, self.device)
+
+    def _pattern_mesh(self):
+        """The mesh the pattern passes shard over: the configured mesh in a
+        single process; None under several, where each process runs the
+        whole pattern pass on its own device (duplicated device work, but
+        no gamma matrix materialises and every process derives the same
+        histogram and parameters)."""
+        mesh = self._mesh()
+        if mesh is None:
+            return None
+        return mesh if process_count() == 1 else None
 
     def _ensure_pattern_program(self) -> GammaProgram:
         """The pattern-capable GammaProgram, built lazily (scoring-only
@@ -624,7 +669,8 @@ class Splink:
                     want_ids = self._virtual_ids_policy()
                     pids, self._pattern_counts, n_real = compute_virtual_pattern_ids(
                         self._pattern_program, self._virtual,
-                        int(self.settings["pair_batch_size"]), return_ids=want_ids,
+                        int(self.settings["pair_batch_size"]), mesh=self._pattern_mesh(),
+                        return_ids=want_ids,
                     )
                     if want_ids:
                         self._P_virtual = pids
@@ -639,6 +685,7 @@ class Splink:
                 self._P, self._pattern_counts = self._pattern_program.compute_pattern_ids(
                     pairs.idx_l, pairs.idx_r,
                     batch_size=int(self.settings["pair_batch_size"]),
+                    mesh=self._pattern_mesh(),
                 )
         return self._P, self._pattern_counts, self._pattern_program
 
@@ -696,7 +743,8 @@ class Splink:
                             yield t
                     out_base += rp.total
                 return
-            for r, p0, _, _n, chunk in _virtual_pass_iter(program, plan, batch):
+            for r, p0, _, _n, chunk in _virtual_pass_iter(program, plan, batch,
+                                                          mesh=self._pattern_mesh()):
                 t = decode(chunk.astype(np.int32), r, p0)
                 if t is not None:
                     yield t
@@ -880,8 +928,12 @@ class Splink:
             if self._use_pattern_pipeline():
                 self._run_em_patterns(compute_ll)
             elif (self._ensure_pairs().spill_store is not None
-                  and self._pairs.n_pairs > int(self.settings["max_resident_pairs"])):
-                # spill-store-backed pairs past the resident cap: EM reads
+                  and (self._multihost_spill_store(self._pairs) is not None
+                       or self._pairs.n_pairs > int(self.settings["max_resident_pairs"]))):
+                # spill-store-backed pairs past the resident cap, or a
+                # per-process store (whose only correct EM is the
+                # manifest-fed driver with the cross-process reduction; the
+                # choice must not hang on the LOCAL pair count): EM reads
                 # the store directly, gammas per chunk on the device
                 self._run_em_streamed_spill(self._pairs, compute_ll)
             else:
@@ -948,7 +1000,7 @@ class Splink:
         params_snapshot = copy.deepcopy(self.params)
         try:
             active_plan(self.settings).fire("resident_em", pairs=len(G))
-            self._run_em_fused(self._gamma_tensor(G), None, compute_ll)
+            self._run_em_resident(G, compute_ll)
         except Exception as e:  # noqa: BLE001 - is_oom() decides
             if not is_oom(e):
                 raise
@@ -958,6 +1010,16 @@ class Splink:
                           pairs=len(G), device=str(self.device))
             self._run_em_streamed(G, compute_ll)
         self._emit_em_diagnostics(hist)
+
+    def _run_em_resident(self, G: np.ndarray, compute_ll: bool) -> None:
+        """Resident EM on the device gamma matrix, or on it padded and
+        sharded over the mesh (padding weight 0)."""
+        mesh = self._mesh()
+        if mesh is None:
+            self._run_em_fused(self._gamma_tensor(G), None, compute_ll)
+            return
+        G_dev, weights = shard_pairs(mesh, G)
+        self._run_em_fused(G_dev, weights.to(self._float_dtype), compute_ll)
 
     def _run_em_fused(self, G_dev, weights, compute_ll: bool) -> None:
         """Resident EM: the whole run in one run_em call, one update per
@@ -1061,10 +1123,13 @@ class Splink:
 
     def _run_em_streamed(self, G: np.ndarray, compute_ll: bool) -> None:
         """Streaming EM over host gamma micro-batches of pair_batch_size
-        (the reference's _run_em_streamed_stats; with one device there is
-        no slice of the pairs to pick). Reached only when the pattern-id
-        pipeline declined the job (custom comparisons, or a pattern space
-        past MAX_PATTERNS) or after a resident OOM."""
+        (the reference's _run_em_streamed_stats). Reached only when the
+        pattern-id pipeline declined the job (custom comparisons, or a
+        pattern space past MAX_PATTERNS) or after a resident OOM. Under
+        several processes each streams only its global_pair_slice and the
+        per-pass statistics reduce across processes (all_sum_stats)."""
+        if process_count() > 1:
+            G = G[global_pair_slice(len(G))]
         batch = int(self.settings["pair_batch_size"])
 
         def batches():
@@ -1080,15 +1145,20 @@ class Splink:
         (spill.iter_spill_gamma_batches); the gamma matrix never
         materialises on the host. The batch boundaries are the streamed-G
         path's over the same pair order, so the trajectory is bit-identical
-        to it."""
+        to it. Under several processes a shared single-writer store is read
+        by global_pair_slice; a per-process store already holds only this
+        process's shard subset, so reading it whole is the local slice."""
         from .spill import iter_spill_gamma_batches
 
         store = pairs.spill_store
         program = self._gamma_program()
         batch = int(self.settings["pair_batch_size"])
+        pair_range = None
+        if process_count() > 1 and int(store.meta.get("process_count", 1) or 1) == 1:
+            pair_range = global_pair_slice(store.total_pairs)
 
         def batches():
-            return iter_spill_gamma_batches(store, program, batch)
+            return iter_spill_gamma_batches(store, program, batch, pair_range=pair_range)
 
         self._obs.count("pairs_gamma_scored", int(store.total_pairs))
         self._last_em_result = None
@@ -1100,12 +1170,21 @@ class Splink:
     def _run_em_streamed_driver(self, batches, compute_ll: bool) -> None:
         """The streamed EM driver: checkpoint and resume plumbing, retry,
         the fault sites, and run_em_streamed over any re-iterable batch
-        factory."""
+        factory. Under several processes the statistics reduce across
+        them (the caller restricted the stream to this process's slice)
+        and the mesh, which is one process's, is not used."""
         from .parallel.streaming import run_em_streamed
         from .resilience import RetryPolicy, active_plan
         from .resilience.checkpoint import EMCheckpointer
 
         init = self._em_init()
+        mesh = self._mesh()
+        stats_reduce = None
+        if process_count() > 1:
+            from .parallel.distributed import all_sum_stats
+
+            mesh = None
+            stats_reduce = all_sum_stats
         ckpt_dir, resume, interval = self._checkpoint_config()
         start_iteration = 0
         checkpointer = None
@@ -1122,8 +1201,8 @@ class Splink:
                 self._replay_em_history(h["lam"], h["m"], h["u"], h["ll"],
                                         0, start_iteration, compute_ll)
             checkpointer = EMCheckpointer(
-                ckpt_dir, state_hash, interval=interval, process_count=1,
-                write=True, dtype=np.dtype(self._np_float).name,
+                ckpt_dir, state_hash, interval=interval, process_count=process_count(),
+                write=process_index() == 0, dtype=np.dtype(self._np_float).name,
             ).start(init, from_checkpoint=ckpt)
             if ckpt is not None and ckpt.converged:
                 logger.info("checkpoint at iteration %d is already converged; "
@@ -1156,8 +1235,10 @@ class Splink:
                 max_iterations=int(self.settings["max_iterations"]),
                 max_levels=self.params.max_levels,
                 em_convergence=self.settings["em_convergence"],
+                mesh=mesh,
                 compute_ll=compute_ll,
                 on_iteration=on_iteration,
+                stats_reduce=stats_reduce,
                 start_iteration=start_iteration,
                 retry_policy=RetryPolicy(),
                 fault_plan=active_plan(self.settings),

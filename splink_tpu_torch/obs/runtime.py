@@ -38,10 +38,6 @@ from .tracer import Tracer
 
 logger = logging.getLogger("splink_tpu_torch")
 
-#: the identity tags every event carries; the port runs one process
-HOST_TAGS = {"process_index": 0, "process_count": 1}
-
-
 def _never_raise(fn):
     """Telemetry emission must never break the run it observes."""
 
@@ -104,8 +100,10 @@ class RunContext:
         sink = None
         if tdir:
             try:
+                from ..parallel.distributed import host_tags
+
                 path = os.path.join(os.path.expanduser(tdir), f"run_{run_id}.jsonl")
-                sink = EventSink(path, run_id, HOST_TAGS)
+                sink = EventSink(path, run_id, host_tags())
             except Exception as e:  # noqa: BLE001 - telemetry must not block init
                 logger.warning("telemetry disabled (sink init failed): %s", e)
                 sink = None

@@ -218,11 +218,15 @@ def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
         scratch = torch.empty(2 * -(-width // 32) * B, dtype=torch.int32, device=s1.device)
     if name == "jaro_winkler":
         scalars = (*scalars, None if mask is None else mask.data_ptr())
-    err = fn(
-        s1.data_ptr(), s2.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, width,
-        s1.element_size(), words, None if scratch is None else scratch.data_ptr(),
-        *scalars, out.data_ptr(), torch.cuda.current_stream(s1.device).cuda_stream,
-    )
+    # the launcher runs on the CUDA runtime's current device: make it the
+    # inputs' (a mesh shard on cuda:1 while cuda:0 is current would launch
+    # on the wrong device with a foreign stream)
+    with torch.cuda.device(s1.device):
+        err = fn(
+            s1.data_ptr(), s2.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, width,
+            s1.element_size(), words, None if scratch is None else scratch.data_ptr(),
+            *scalars, out.data_ptr(), torch.cuda.current_stream(s1.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1

@@ -1,11 +1,11 @@
 """Device-side candidate-pair generation: the virtual pair index.
 
-The port of splink_tpu/pairgen.py (single device; every mesh branch is
-left out). Pairs are DECODED ON THE DEVICE from per-rule group structure,
-the sequential-rule dedup becomes a device mask, and the gamma/pattern
-program consumes them in the same pass: per batch the host hands over a
-start position and nothing else, and no pair index ever materialises on
-the host.
+The port of splink_tpu/pairgen.py. Pairs are DECODED ON THE DEVICE from
+per-rule group structure, the sequential-rule dedup becomes a device mask,
+and the gamma/pattern program consumes them in the same pass: per batch the
+host hands over a start position and nothing else, and no pair index ever
+materialises on the host. Under a mesh each batch's positions split over
+the shards (the reference's mesh kernels).
 
 Decomposition. Each rule's non-null key groups (rows sorted by uid rank
 then grouped by key code — host blocking's layout, so orientation is free)
@@ -51,7 +51,7 @@ import torch
 from .blocking import _key_codes, _sort_groups, _split_join_keys, _uid_ranks
 from .compat_sql import parse_blocking_rule
 from .data import EncodedTable
-from .gammas import _D2H_DEPTH, _Downloads, pattern_histogram
+from .gammas import _D2H_DEPTH, _Downloads, gather_shard_ids, pattern_histogram
 
 # Unit extent bound, the reference's (tests shrink it to force multi-chunk
 # group splitting on tiny data).
@@ -934,20 +934,32 @@ def decode_positions(plan: VirtualPlan, rule: int, q: np.ndarray,
 # --------------------------------------------------------------------------
 
 
-def make_virtual_pattern_fn(program, plan: VirtualPlan, rule: int):
+def make_virtual_pattern_fn(program, plan: VirtualPlan, rule: int, mesh=None):
     """fn(q) -> (b,) int32 pattern ids of the rule-relative positions
     ``q`` (an int64 tensor on the program's device): decode on the device,
     the mask (duplicate uid keys, the rule's own residual, every earlier
     rule's predicate), the gamma program on every position and the
     mixed-radix ids, masked positions carrying the sentinel
-    ``n_patterns``."""
-    arrs = plan.on_device(program.device)
-    rp = plan.rules[rule]
-    ra = arrs["rules"][rule]
-    prev_res = [p.residual_fn for p in plan.rules[:rule]]
-    codes, uid, res_ops = arrs["codes"], arrs["uid"], arrs["res_ops"]
+    ``n_patterns``.
 
-    def fn(q):
+    With ``mesh``, fn(q, k) takes shard k's positions on its device (the
+    plan's arrays replicated there) and runs the program's mesh kernel, the
+    EXACT gamma body (GammaProgram._pattern_batch_for_mesh). The decode
+    needs no cross-shard state (each shard searches the whole replicated
+    cumulative table), so a shard's ids equal the unsharded pass's at its
+    positions."""
+    rp = plan.rules[rule]
+    prev_res = [p.residual_fn for p in plan.rules[:rule]]
+    if mesh is None:
+        shard_arrs = [plan.on_device(program.device)]
+    else:
+        shard_arrs = [plan.on_device(dev) for dev in mesh.devices]
+        shard_fn = program._pattern_batch_for_mesh(mesh)
+
+    def fn(q, k=0):
+        arrs = shard_arrs[k]
+        ra = arrs["rules"][rule]
+        codes, uid, res_ops = arrs["codes"], arrs["uid"], arrs["res_ops"]
         i, j = unit_decode(q, ra["order"], *ra["units"], ra["pc"])
         masked = torch.zeros(q.shape, dtype=torch.bool, device=q.device)
         if uid is not None:
@@ -963,12 +975,14 @@ def make_virtual_pattern_fn(program, plan: VirtualPlan, rule: int):
                 v, unk = res(i, j, res_ops)
                 holds &= v & ~unk
             masked |= holds
-        return program.pattern_ids(program.gamma_batch(i, j), masked)
+        if mesh is None:
+            return program.pattern_ids(program.gamma_batch(i, j), masked)
+        return shard_fn(k, i, j, masked)
 
     return fn
 
 
-def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int,
+def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
                        want_ids: bool = True, counts_out=None):
     """Drive one device pass over the virtual pair stream, yielding
     ``(rule, rule_p0, out_pos, n_valid, pid_host)`` per batch, in order.
@@ -980,13 +994,23 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int,
     stream a few batches deep; without it ``pid_host`` is None and no
     per-pair bytes leave the device. The histogram accumulates on the
     device in int64 and is added to ``counts_out`` (int64, n_patterns;
-    the caller owns it) once, at the end of the pass."""
+    the caller owns it) once, at the end of the pass.
+
+    With ``mesh`` both batch sizes pad to a mesh multiple and each batch
+    splits into the mesh's equal pieces of positions, piece k decoded and
+    scored on shard k's device (:func:`make_virtual_pattern_fn`); the ids
+    and the shards' histograms gather in shard order
+    (``gammas.gather_shard_ids``)."""
+    from .parallel.mesh import pad_to_multiple, shard_ranges
+
     n_patterns = program.n_patterns
     counts = counts_out if counts_out is not None else np.zeros(n_patterns, np.int64)
     total = plan.n_candidates
     if total == 0:
         return
     batch_size = max(min(batch_size, total), 1)
+    if mesh is not None:
+        batch_size = pad_to_multiple(batch_size, mesh.size)
     device = program.device
     acc = torch.zeros(n_patterns + 1, dtype=torch.int64, device=device)
     downloads = _Downloads(device, _D2H_DEPTH) if want_ids else None
@@ -998,12 +1022,21 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int,
             # clamp the batch to this RULE's total (power-of-two bucket): a
             # small rule must not run a full pair_batch_size of positions
             rule_bs = min(batch_size, 1 << max(int(rp.total - 1).bit_length(), 6))
-            fn = make_virtual_pattern_fn(program, plan, r)
+            if mesh is not None:
+                rule_bs = pad_to_multiple(rule_bs, mesh.size)
+            fn = make_virtual_pattern_fn(program, plan, r, mesh)
             for p0 in range(0, rp.total, rule_bs):
                 p1 = min(p0 + rule_bs, rp.total)
-                q = torch.arange(p0, p1, dtype=torch.int64, device=device)
-                pid = fn(q)
-                acc += pattern_histogram(pid, n_patterns + 1)
+                if mesh is None:
+                    pid = fn(torch.arange(p0, p1, dtype=torch.int64, device=device))
+                    acc += pattern_histogram(pid, n_patterns + 1)
+                else:
+                    pid, hist = gather_shard_ids(
+                        [fn(torch.arange(lo, hi, dtype=torch.int64, device=mesh.devices[k]), k)
+                         for k, (lo, hi) in enumerate(shard_ranges(mesh, p0, p1, rule_bs))
+                         if hi > lo],
+                        n_patterns, device)
+                    acc += hist
                 if want_ids:
                     downloads.submit(program.narrow_ids(pid), (r, p0, out_pos, p1 - p0))
                     for tag, arr in downloads.ready():
@@ -1023,17 +1056,19 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int,
 
 
 def compute_virtual_pattern_ids(program, plan: VirtualPlan, batch_size: int,
-                                return_ids: bool = True):
+                                mesh=None, return_ids: bool = True):
     """One device pass over the VIRTUAL pair stream: (pids, counts,
     n_real). pids carries the sentinel ``n_patterns`` for masked positions;
     counts excludes them; n_real = counts.sum(). With ``return_ids=False``
     the pass computes ONLY the histogram (EM needs nothing else) and pids
-    comes back None."""
+    comes back None. With ``mesh`` each batch shards over the mesh's data
+    axis: the same ids and counts, per-device work divided by the mesh
+    size."""
     program._require_patterns()
     counts = np.zeros(program.n_patterns, np.int64)
     pids = np.empty(plan.n_candidates, program.id_dtype) if return_ids else None
     for _, _, ps, n_valid, chunk in _virtual_pass_iter(
-        program, plan, batch_size, want_ids=return_ids, counts_out=counts,
+        program, plan, batch_size, mesh=mesh, want_ids=return_ids, counts_out=counts,
     ):
         if return_ids:
             pids[ps : ps + n_valid] = chunk

@@ -1,13 +1,16 @@
 """Streaming EM: sufficient statistics accumulated across micro-batches.
 
-The single-device form of splink_tpu/parallel/streaming.py. For pair sets
-past ``max_resident_pairs`` whose settings cannot use the pattern-id
-pipeline (a custom comparison, or a pattern space past MAX_PATTERNS),
-gamma batches go to the device one at a time, the per-batch
-``SufficientStats`` accumulate there, and the parameters update once per
-pass over the data. A transient failure anywhere in a pass restarts the
-whole pass (resilience.retry), so a retried run is bit-identical to an
-undisturbed one.
+The port of splink_tpu/parallel/streaming.py. For pair sets past
+``max_resident_pairs`` whose settings cannot use the pattern-id pipeline
+(a custom comparison, or a pattern space past MAX_PATTERNS), gamma batches
+go to the device one at a time, the per-batch ``SufficientStats``
+accumulate there, and the parameters update once per pass over the data.
+With a mesh each batch is padded and sharded over it (per-shard stats,
+summed in shard order); a multi-process run passes
+``distributed.all_sum_stats`` as ``stats_reduce``, so every process
+updates from the global aggregate of the slices they stream. A transient
+failure anywhere in a pass restarts the whole pass (resilience.retry), so
+a retried run is bit-identical to an undisturbed one.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..models.fellegi_sunter import (
     sufficient_stats,
     update_params,
 )
+from .mesh import reduce_shards, shard_pairs
 
 
 def _zero_stats(C: int, L: int, dtype, device) -> SufficientStats:
@@ -46,6 +50,27 @@ def _batch_stats(G, params: FSParams, max_levels: int, weights=None, compute_ll=
     return stats, (log_likelihood(G, params, weights) if compute_ll else None)
 
 
+def _sharded_batch_stats(mesh, G, w, params: FSParams, max_levels: int, dtype,
+                         compute_ll: bool):
+    """One batch padded and sharded over ``mesh`` (user weights padded
+    alongside with weight 0): per-shard stats and log likelihoods, summed
+    on the first shard's device in shard order."""
+    G = G.cpu() if isinstance(G, torch.Tensor) else G
+    if w is None:
+        G, w = shard_pairs(mesh, G)
+    else:
+        w = w.cpu() if isinstance(w, torch.Tensor) else w
+        G, w, _pad = shard_pairs(mesh, G, np.asarray(w, np.float32))
+    parts = [
+        _batch_stats(g, FSParams(*(t.to(g.device) for t in params)), max_levels,
+                     ws.to(dtype), compute_ll)
+        for g, ws in zip(G.shards, w.shards)
+    ]
+    stats = reduce_shards([p[0] for p in parts])
+    ll = reduce_shards([p[1] for p in parts]) if compute_ll else None
+    return stats, ll
+
+
 def run_em_streamed(
     batch_iter_factory: Callable[[], Iterable],
     init: FSParams,
@@ -53,8 +78,10 @@ def run_em_streamed(
     max_iterations: int,
     max_levels: int,
     em_convergence: float,
+    mesh=None,
     compute_ll: bool = False,
     on_iteration=None,
+    stats_reduce=None,
     start_iteration: int = 0,
     retry_policy=None,
     fault_plan=None,
@@ -67,6 +94,13 @@ def run_em_streamed(
             either ``G`` arrays or ``(G, weights)`` tuples, each (b, C)
             int8 (host arrays or tensors). Called once per EM iteration.
         init: starting parameters.
+        mesh: optional ``parallel.mesh.Mesh``; each batch is padded and
+            sharded over it, its weights (padding 0) threaded through.
+        stats_reduce: optional callable applied to the pass's accumulated
+            SufficientStats (and, with ``compute_ll``, to the pair
+            ``(stats, ll)``, so the log likelihood rides the same
+            collective) before the parameter update. Multi-process runs
+            pass ``parallel.distributed.all_sum_stats``.
         on_iteration: optional callback(iteration, FSParams, ll, converged)
             run after each update (where resilience.EMCheckpointer plugs
             in); ``converged`` is True on the update that met
@@ -110,10 +144,14 @@ def run_em_streamed(
         for bi, batch in enumerate(batch_iter_factory()):
             fault_plan.fire("batch_fetch", iter=it, batch=bi)
             G, w = batch if isinstance(batch, tuple) else (batch, None)
-            G = _to_device(G, device)
-            if w is not None:
-                w = _to_device(w, device, dtype)
-            stats, ll = _batch_stats(G, params, max_levels, w, compute_ll)
+            if mesh is None:
+                G = _to_device(G, device)
+                if w is not None:
+                    w = _to_device(w, device, dtype)
+                stats, ll = _batch_stats(G, params, max_levels, w, compute_ll)
+            else:
+                stats, ll = _sharded_batch_stats(mesh, G, w, params, max_levels, dtype,
+                                                 compute_ll)
             acc = acc + stats
             if compute_ll:
                 ll_parts.append(ll)
@@ -126,6 +164,15 @@ def run_em_streamed(
             )
         else:
             acc, ll_parts = one_pass(it, params)
+        ll_dev = (torch.sum(torch.stack(ll_parts)) if ll_parts
+                  else torch.zeros((), dtype=dtype, device=device))
+        if stats_reduce is not None:
+            # each process streams only its slice, so the local ll is
+            # partial too: it reduces through the same collective
+            if compute_ll:
+                acc, ll_dev = stats_reduce((acc, ll_dev))
+            else:
+                acc = stats_reduce(acc)
         new = update_params(acc)
         delta = torch.maximum(
             torch.max(torch.abs(new.m - params.m)),
@@ -134,7 +181,7 @@ def run_em_streamed(
         params = new
         # the one host read per pass: the convergence decision and the
         # histories need these scalars
-        ll_total = float(torch.sum(torch.stack(ll_parts))) if ll_parts else 0.0
+        ll_total = float(ll_dev) if compute_ll else 0.0
         lam_hist.append(float(params.lam))
         m_hist.append(params.m.cpu().numpy())
         u_hist.append(params.u.cpu().numpy())

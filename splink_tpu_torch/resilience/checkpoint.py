@@ -247,6 +247,14 @@ def load_checkpoint(
     )
 
 
+def _host_list(a) -> list:
+    """Nested lists of an array or a tensor on any device (``np.asarray``
+    cannot read a CUDA tensor)."""
+    if hasattr(a, "cpu"):
+        a = a.cpu()
+    return np.asarray(a).tolist()
+
+
 class EMCheckpointer:
     """Per-iteration checkpoint hook for the streamed EM driver.
 
@@ -304,16 +312,16 @@ class EMCheckpointer:
             self.dtype = from_checkpoint.dtype
         else:
             self._lam = [float(init_params.lam)]
-            self._m = [np.asarray(init_params.m).tolist()]
-            self._u = [np.asarray(init_params.u).tolist()]
+            self._m = [_host_list(init_params.m)]
+            self._u = [_host_list(init_params.u)]
         return self
 
     def on_iteration(self, it: int, params, ll=None, converged: bool = False):
         """Record one completed update; write every ``interval`` updates."""
         self._iteration = it
         self._lam.append(float(params.lam))
-        self._m.append(np.asarray(params.m).tolist())
-        self._u.append(np.asarray(params.u).tolist())
+        self._m.append(_host_list(params.m))
+        self._u.append(_host_list(params.u))
         if ll is not None:
             self._ll.append(float(ll))
             self._have_ll = True

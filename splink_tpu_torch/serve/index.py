@@ -1092,15 +1092,19 @@ def build_index(linker, *, clear_caches: bool = True) -> LinkageIndex:
         if build_dir:
             # out-of-core: the packed matrix streams to disk chunk by chunk
             # (bounded working set, resumable) and rides in the index as a
-            # read-only memmap; one process, so the build directory is
-            # build_spill_dir itself
+            # read-only memmap. Per-process root under several processes
+            # (the pairs path's discipline): P processes must not race
+            # truncate and append on one packed.bin, so each writes its own
+            # deterministic, fingerprint-identical copy
+            from ..parallel.distributed import spill_shard_dir
+
             packed, layout = _pack_table_out_of_core(
                 table,
                 float64,
                 include=include,
                 qgram_specs=qgram_specs_for(settings),
                 charset_specs=charset_specs_for(settings),
-                build_dir=build_dir,
+                build_dir=spill_shard_dir(build_dir),
                 chunk_rows=int(settings.get("build_spill_chunk_rows") or 1048576),
                 state_hash=settings_state_hash(
                     settings,

@@ -480,7 +480,8 @@ def _np_scalar(v):
     raise TypeError(f"unserialisable meta value {v!r}")
 
 
-def iter_spill_gamma_batches(store: PairSpillStore, program, batch_size: int):
+def iter_spill_gamma_batches(store: PairSpillStore, program, batch_size: int,
+                             pair_range: slice | None = None):
     """One pass of gamma micro-batches over a committed spill store — what
     ``run_em_streamed``'s batch factory calls every EM iteration.
 
@@ -488,11 +489,12 @@ def iter_spill_gamma_batches(store: PairSpillStore, program, batch_size: int):
     once, its gamma block computed on the device
     (:meth:`~.gammas.GammaProgram.iter_gamma_chunks`) and yielded — the
     gamma matrix NEVER materialises on the host, which is the point: at
-    billions of pairs even the int8 G is tens of GB. Batch boundaries are
-    identical to the materialised streamed path's, so the EM trajectory is
-    bit-identical to a run that could afford the resident G. (The
-    reference's ``pair_range``, a multi-controller slice, waits for
-    multi-GPU.)
+    billions of pairs even the int8 G is tens of GB. ``pair_range``
+    restricts the pass to a global slice (multi-process runs pass
+    ``distributed.global_pair_slice`` so each process streams only its own
+    share of the manifest). Batch boundaries are identical to the
+    materialised streamed path's, so the EM trajectory is bit-identical to
+    a run that could afford the resident G.
     """
     if not store.completed:
         raise SpillError(
@@ -500,6 +502,9 @@ def iter_spill_gamma_batches(store: PairSpillStore, program, batch_size: int):
             "to train on a half-emitted pair set"
         )
     il, ir = store.open_arrays()
-    if store.total_pairs == 0:
+    lo, hi = 0, store.total_pairs
+    if pair_range is not None:
+        lo, hi = pair_range.start, pair_range.stop
+    if hi <= lo:
         return
-    yield from program.iter_gamma_chunks(il, ir, batch_size=batch_size)
+    yield from program.iter_gamma_chunks(il[lo:hi], ir[lo:hi], batch_size=batch_size)

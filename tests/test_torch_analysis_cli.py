@@ -60,7 +60,7 @@ USAGE_CASES = [
     (["--audit", "--device", "cpu", "--kernels", "no_such_kernel"], "no_such_kernel"),
     (["splink_tpu_torch"], "item 12b"),
     (["--thread-audit"], "item 12b"),
-    (["--shard-audit"], "item 7"),
+    (["--shard-audit"], "item 12b"),
 ]
 
 

@@ -307,8 +307,8 @@ def test_card_compacted_form_equals_host_compaction(rules, monkeypatch):
     want = list(blocking_device.iter_device_pairs(plan, 64))
     orig = blocking_device._emission_context
 
-    def card_form(plan, batch_size):
-        ctx = orig(plan, batch_size)
+    def card_form(plan, batch_size, mesh=None):
+        ctx = orig(plan, batch_size, mesh)
         ctx["compact_dev"] = True
         return ctx
 

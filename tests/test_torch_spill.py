@@ -292,8 +292,8 @@ def test_card_form_writes_the_same_store(tmp_path, monkeypatch):
     a.finalize()
     orig = blocking_device._emission_context
 
-    def card_form(plan, batch_size):
-        ctx = orig(plan, batch_size)
+    def card_form(plan, batch_size, mesh=None):
+        ctx = orig(plan, batch_size, mesh)
         ctx["compact_dev"] = True
         return ctx
 
