@@ -118,7 +118,15 @@ on the card over all 29 registered kernels, against the committed
 finding raises. The ``jaro_winkler`` and ``levenshtein`` entries must
 launch the hand kernels (their records carry the launches, and one call
 of each adds one to ``strings_cuda.launches``); the phase's line lists
-every perf cell's ``execute_ms`` and every kernel's host syncs. The
+every perf cell's ``execute_ms`` and every kernel's host syncs. Then the
+shard audit over all 19 sharded kernels (8 shards on the card) against
+the committed ``cuda`` tier of ``shard_baselines.json`` and a lint of the
+package, any finding raising: ``jaro_winkler_sharded`` and
+``gamma_batch_sharded`` must launch the Jaro-Winkler kernel on every
+shard, and ``jaro_winkler_sharded``'s per-shard outputs on the card must
+equal its plain version's on the CPU bit for bit; the line carries
+``shard_audited``, ``shard_s``, ``lint_files``, ``lint_s`` and the
+audit's launches. The
 ``mesh`` phase, after ``spill``: the main path's job under ``{"data": 1}``
 (a one-shard mesh; gammas unsharded as in the reference's resident regime,
 EM over ``shard_pairs``) against the unsharded main path of the same run
@@ -3262,10 +3270,64 @@ APPROX_TOP_K = 8
 APPROX_RECALL_MIN = 0.8  # planted twins found at the budget (the reference: 0.89)
 
 
+def shard_phase(torch, strings_cuda):
+    """The shard audit on the card over every registered sharded kernel (8
+    shards on the one card) against the committed ``cuda`` tier of
+    ``shard_baselines.json``, then a lint of the package: any finding
+    raises. The Jaro-Winkler entries must launch the hand kernel once per
+    shard (read from their records), and ``jaro_winkler_sharded``'s
+    per-shard outputs on the card must equal, bit for bit, its plain
+    version's on the CPU. Returns the fields and the audit's launches."""
+    import splink_tpu_torch
+    from splink_tpu_torch.analysis import shard_audit, torchlint
+
+    fields = {}
+    before = dict(strings_cuda.launches)
+    t0 = time.perf_counter()
+    findings, fields["shard_audited"] = shard_audit.run_shard_audit(device="cuda")
+    fields["shard_s"] = time.perf_counter() - t0
+    launches = {k: strings_cuda.launches[k] - before[k] for k in KERNELS}
+    pkg = os.path.dirname(os.path.abspath(splink_tpu_torch.__file__))
+    t0 = time.perf_counter()
+    report = torchlint.lint_paths([pkg])
+    fields["lint_s"] = time.perf_counter() - t0
+    fields["lint_files"] = report.files_checked
+    findings = findings + report.findings
+    if findings:
+        raise AssertionError("shard audit / lint findings on the card:\n"
+                             + "\n".join(f.format() for f in findings))
+    card = shard_audit._resolve("cuda")
+    jw_launches = {}
+    for name in ("jaro_winkler_sharded", "gamma_batch_sharded"):
+        spec = shard_audit.SHARD_REGISTRY[name]
+        record = spec.cache[("record", str(card))][1]
+        jw_launches[name] = sum(n for k, n in record.launches.items()
+                                if k.startswith("jaro_winkler/"))
+        if jw_launches[name] < spec.mesh_size:
+            raise AssertionError(f"{name}: {record.launches} — the hand kernel did not "
+                                 f"launch on each of the {spec.mesh_size} shards")
+    fields["shard_jw_launches"] = jw_launches
+    spec = shard_audit.SHARD_REGISTRY["jaro_winkler_sharded"]
+    out = spec.cache[("record", str(card))][0]
+    fn, args, kwargs, _ = shard_audit._built(spec, torch.device("cpu"))
+    plain = fn(*args, **kwargs)
+    for k, (a, b) in enumerate(zip(out.shards, plain.shards)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"jaro_winkler_sharded shard {k}: card != plain on the CPU")
+    fields["shard_jw_bit_equal_shards"] = len(out.shards)
+    fields["shard_peak_bytes"] = {
+        name: shard_audit.measure_shard_kernel(sp, "cuda")["peak_bytes"]
+        for name, sp in sorted(shard_audit.SHARD_REGISTRY.items())}
+    for sp in shard_audit.SHARD_REGISTRY.values():
+        sp.cache.clear()
+    return fields, launches
+
+
 def analysis_phase(torch, strings_cuda):
     """The three measured analysis layers on the card over every registered
-    kernel, against the committed ``cuda`` tier: any finding raises.
-    Returns the phase's fields."""
+    kernel, against the committed ``cuda`` tier, then the shard audit and
+    the lint (:func:`shard_phase`): any finding raises. Returns the
+    phase's fields and the shard audit's launches."""
     from splink_tpu_torch.analysis import num_audit, perf_audit, trace_audit
 
     fields = {}
@@ -3280,6 +3342,11 @@ def analysis_phase(torch, strings_cuda):
     perf_findings, fields["perf_cells"] = perf_audit.run_perf_audit(
         device="cuda", measured_out=measured)
     fields["perf_s"] = time.perf_counter() - t0
+    # the host's dispatch now and when the cuda tier was measured: the
+    # perf audit's time bands scale by their ratio (perf_audit.host_probe_ms)
+    fields["host_probe_ms"] = perf_audit.host_probe_ms(torch.device("cuda"))
+    fields["tier_host_probe_ms"] = perf_audit.load_baselines()["tiers"]["cuda"][
+        "_meta"].get("host_probe_ms")
     findings = findings + num_findings + perf_findings
     if findings:
         raise AssertionError("analysis findings on the card:\n"
@@ -3304,13 +3371,15 @@ def analysis_phase(torch, strings_cuda):
     fields["execute_ms"] = {cell: rec["execute_ms"] for cell, rec in measured.items()}
     fields["syncs"] = {name: trace_audit.sync_count(r) for name, r in records.items()}
     fields["syncs_recorded"] = {name: len(r.syncs) for name, r in records.items()}
+    shard_fields, shard_launches = shard_phase(torch, strings_cuda)
+    fields.update(shard_fields)
     # the phases after this one need the card's memory, not the audits'
     # memoised inputs (the full-size cells hold ~0.1 GB)
     for spec in trace_audit.REGISTRY.values():
         spec.cache.clear()
     trace_audit.shared_fs_inputs.cache_clear()
     trace_audit.shared_gamma_program.cache_clear()
-    return fields
+    return fields, shard_launches
 
 
 def approx_settings(n_base: int, **over):
@@ -4091,15 +4160,16 @@ def main() -> int:
     # -- audits over every registered kernel, against the committed cuda tier
     zero_counts(strings_cuda, native, tf)
     t0 = time.perf_counter()
-    analysis = analysis_phase(torch, strings_cuda)
+    analysis, shard_launches = analysis_phase(torch, strings_cuda)
     analysis_launches = dict(strings_cuda.launches)
     if not all(analysis_launches[k] for k in KERNELS):
         raise AssertionError(f"analysis path launched {analysis_launches}")
     emit("analysis", phase_s=time.perf_counter() - t0, smi=smi,
-         path_launches=analysis_launches, **analysis)
+         path_launches=analysis_launches, shard_launches=shard_launches, **analysis)
     for r in rows:
         if r["name"] in KERNELS:
             r["analysis_path_launches"] = analysis_launches[r["name"]]
+            r["shard_path_launches"] = shard_launches[r["name"]]
 
     # -- the approximate tier at bench.py's size: minhash-LSH blocking into
     # -- the main path's columns, parity with the CPU, the serving fallback

@@ -1,12 +1,20 @@
-"""The measured analysis layers of splink_tpu_torch, and the lock factory.
+"""The analysis layers of splink_tpu_torch, and the lock factory.
 
-The port of splink_tpu/analysis's measured half, one finding model:
+The port of splink_tpu/analysis, one finding model:
 
+  * :mod:`.torchlint` and :mod:`.rules` — the AST lint pass (the
+    reference's jaxlint) with its PyTorch rules: host calls and syncs in
+    device code, unpinned dtypes, float64 leaks, import-time device work,
+    and the multi-process hazards.
   * :mod:`.trace_audit` — the kernel registry (the reference's 29 names,
     fixed-seed example inputs) and the op-level audit: each kernel runs
     twice under a dispatch recorder, held to the dtype allowlist, the
     host-sync allowlist, the host-data budget and a deterministic op
     sequence.
+  * :mod:`.shard_audit` — the sharded kernels (the reference's 19 names)
+    on an 8-shard audit mesh: shard placement, the collective budget, the
+    padding weights and the per-shard costs against
+    ``shard_baselines.json``.
   * :mod:`.perf_audit` — compile (first call) and execute wall plus memory
     for each (tier, kernel, shape), gated one-sided against
     ``perf_baselines.json``.
@@ -14,19 +22,27 @@ The port of splink_tpu/analysis's measured half, one finding model:
     budget per kernel and tier (``num_baselines.json``), monotonicity and
     the pinned fold order.
 
-Each runs on ``cuda`` unless a device is named (``device="cpu"``), and keys
-its baselines by tier (``cpu``, ``cuda``). :mod:`.lockwatch` is the lock
-factory of the serve and obs modules. The static layers (the lint engine
-and its rules, numlint, threadlint with the full lockwatch) and the shard
-audit are not ported yet.
+Each audit runs on ``cuda`` unless a device is named (``device="cpu"``),
+and keys its baselines by tier (``cpu``, ``cuda``). :mod:`.lockwatch` is
+the lock factory of the serve and obs modules. Threadlint with the full
+lockwatch, and numlint, are not ported yet.
 
-CLI: ``python -m splink_tpu_torch.analysis --audit --num-audit
-[--perf-audit] [--device cpu] [--json]``.
+CLI: ``python -m splink_tpu_torch.analysis [paths...] --audit --shard-audit
+--num-audit [--perf-audit] [--device cpu] [--json]``.
 """
 
 from .findings import Finding, Report
 from .num_audit import num_plan, run_num_audit
 from .perf_audit import current_tier, perf_plan, run_perf_audit, update_baselines
+from .rules import RULES
+from .shard_audit import (
+    SHARD_REGISTRY,
+    ShardKernelSpec,
+    audit_shard_kernel,
+    register_shard_kernel,
+    run_shard_audit,
+)
+from .torchlint import ModuleLint, lint_paths, lint_source
 from .trace_audit import REGISTRY, KernelSpec, audit_kernel, register_kernel, run_audit
 
 __all__ = [
@@ -43,4 +59,13 @@ __all__ = [
     "current_tier",
     "num_plan",
     "run_num_audit",
+    "RULES",
+    "ModuleLint",
+    "lint_source",
+    "lint_paths",
+    "SHARD_REGISTRY",
+    "ShardKernelSpec",
+    "register_shard_kernel",
+    "audit_shard_kernel",
+    "run_shard_audit",
 ]

@@ -1,11 +1,13 @@
-"""CLI: ``python -m splink_tpu_torch.analysis [--audit] [--perf-audit]
-[--num-audit] [--device cpu] [--json]``.
+"""CLI: ``python -m splink_tpu_torch.analysis [paths...] [--rules ...]
+[--audit] [--shard-audit] [--perf-audit] [--num-audit] [--device cpu]
+[--json]``.
 
-Exit codes: 0 clean, 1 findings, 2 usage error. Every audit runs on
-``cuda`` unless ``--device`` names another device, and gates against the
-committed baselines of that device's tier. Paths to lint, the shard audit
-and the thread audit belong to layers the port has not yet ported: asking
-for them exits 2 with a message naming the ROADMAP item that will.
+Exit codes: 0 clean, 1 findings, 2 usage error. Paths are linted by
+:mod:`.torchlint` (pure ``ast``: no device). Every audit runs on ``cuda``
+unless ``--device`` names another device, and gates against the committed
+baselines of that device's tier. The thread audit belongs to a layer the
+port has not yet ported: asking for it exits 2 with a message naming the
+ROADMAP item that will.
 """
 
 from __future__ import annotations
@@ -16,14 +18,8 @@ import sys
 from .findings import Report
 
 # what asking for an unported layer says (ROADMAP.md, Queue 1)
-_NOT_PORTED = {
-    "paths": "linting paths needs the static layers (the lint engine and its "
-             "rules, numlint, threadlint), which ROADMAP Queue 1 item 12b ports",
-    "--thread-audit": "--thread-audit is threadlint's, which ROADMAP Queue 1 item 12b "
-                      "ports",
-    "--shard-audit": "--shard-audit is an analysis layer over the mesh, which ROADMAP "
-                     "Queue 1 item 12b ports",
-}
+_THREAD_AUDIT_NOT_PORTED = ("--thread-audit is threadlint's, which ROADMAP Queue 1 "
+                            "item 12b-3 ports")
 
 
 def _names(value):
@@ -33,19 +29,28 @@ def _names(value):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m splink_tpu_torch.analysis",
-        description="the measured analysis layers: trace audit, perf audit, num audit",
+        description="torchlint over paths, and the measured analysis layers: trace "
+                    "audit, shard audit, perf audit, num audit",
     )
-    parser.add_argument("paths", nargs="*", help=argparse.SUPPRESS)
+    parser.add_argument("paths", nargs="*", help="files or directories to lint")
     parser.add_argument("--json", action="store_true", help="machine-readable JSON output")
+    parser.add_argument("--rules", help="comma-separated rule ids to run (default: all)")
+    parser.add_argument("--list-rules", action="store_true", help="print the rule catalog")
     parser.add_argument("--audit", action="store_true",
                         help="run the trace audit over the kernel registry")
+    parser.add_argument("--shard-audit", action="store_true",
+                        help="run the partition audit of the sharded kernels against this "
+                             "tier's shard_baselines.json")
+    parser.add_argument("--update-baselines", action="store_true",
+                        help="re-measure the shard registry and rewrite this tier's block "
+                             "of shard_baselines.json (implies --shard-audit)")
     parser.add_argument("--perf-audit", action="store_true",
                         help="run the perf audit against this tier's perf_baselines.json")
     parser.add_argument("--num-audit", action="store_true",
                         help="run the numerics audit against this tier's num_baselines.json")
     parser.add_argument("--kernels",
-                        help="comma-separated kernel names for every requested audit "
-                             "(default: all)")
+                        help="comma-separated kernel names for every requested audit, "
+                             "shard kernels included (default: all)")
     parser.add_argument("--update-perf-baselines", action="store_true",
                         help="re-measure the perf plan and rewrite this tier's block of "
                              "perf_baselines.json (implies --perf-audit)")
@@ -56,17 +61,20 @@ def main(argv=None) -> int:
                         help="print the perf-audit plan without measuring anything")
     parser.add_argument("--device", default=None,
                         help="the device the audits run on (default: cuda)")
-    parser.add_argument("--shard-audit", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--thread-audit", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
-    for flag, asked in (("paths", bool(args.paths)),
-                        ("--thread-audit", args.thread_audit),
-                        ("--shard-audit", args.shard_audit)):
-        if asked:
-            print(f"error: not ported to splink_tpu_torch yet: {_NOT_PORTED[flag]}",
-                  file=sys.stderr)
-            return 2
+    if args.thread_audit:
+        print(f"error: not ported to splink_tpu_torch yet: {_THREAD_AUDIT_NOT_PORTED}",
+              file=sys.stderr)
+        return 2
+
+    if args.list_rules:
+        from .rules import RULES
+
+        for spec in sorted(RULES.values(), key=lambda s: s.id):
+            print(f"{spec.id}  {spec.title}\n       {spec.doc}")
+        return 0
 
     if args.list_perf_kernels:
         from .perf_audit import format_plan, perf_plan
@@ -80,18 +88,40 @@ def main(argv=None) -> int:
 
     perf = args.perf_audit or args.update_perf_baselines
     num = args.num_audit or args.update_num_baselines
-    if not (args.audit or perf or num):
+    shard = args.shard_audit or args.update_baselines
+    if not (args.paths or args.audit or shard or perf or num):
         parser.print_usage(sys.stderr)
-        print("error: give at least one of --audit / --perf-audit / --num-audit",
-              file=sys.stderr)
+        print("error: give at least one of: a path to lint, --audit, --shard-audit, "
+              "--perf-audit, --num-audit", file=sys.stderr)
         return 2
     kernels = _names(args.kernels)
     report = Report()
+    try:
+        if args.paths:
+            from .torchlint import lint_paths
+
+            report = lint_paths(args.paths, _names(args.rules))
+    except (FileNotFoundError, KeyError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     try:
         if args.audit:
             from .trace_audit import run_audit
 
             findings, report.kernels_audited = run_audit(kernels, args.device)
+            report.extend(findings)
+        if shard:
+            from .perf_audit import current_tier
+            from .shard_audit import run_shard_audit
+            from .shard_audit import update_baselines as update_shard
+
+            if args.update_baselines:
+                new = update_shard(kernels, device=args.device)
+                tier = current_tier(args.device)
+                print(f"wrote shard baselines for {len(new['tiers'][tier]['kernels'])} "
+                      f"kernel(s) on tier '{tier}'", file=sys.stderr)
+            findings, report.shard_kernels_audited = run_shard_audit(
+                kernels, device=args.device)
             report.extend(findings)
         if num:
             from .num_audit import current_tier, run_num_audit

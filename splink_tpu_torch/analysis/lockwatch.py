@@ -4,7 +4,7 @@ The port's copy of the factory half of splink_tpu/analysis/lockwatch.py:
 every serve and obs lock is created through :func:`new_lock` /
 :func:`new_rlock` under a ``Class._attr`` name, as in the reference. The
 reference's instrumented (watched) locks belong to its concurrency audit,
-which the port does not carry yet (ROADMAP Queue 1 item 12b), so these
+which the port does not carry yet (ROADMAP Queue 1 item 12b-3), so these
 return the plain ``threading`` primitives.
 """
 

@@ -17,7 +17,14 @@ this module):
             fires; ``execute_ms`` must still exceed its band on the median
             of K re-measurements. ``compile_ms`` cannot be measured twice
             in one process, so its band is gated on its one reading, past
-            a generous floor.
+            a generous floor. The port's programs are launch-bound, so both
+            walls are the host's dispatch as much as the card's work, and
+            the host's speed differs between machines and runs: a tier
+            block records :func:`host_probe_ms` (a fixed chain of tiny
+            launches and one host read) beside its cells, and a time band
+            scales by how much slower the same probe runs now, never
+            tighter than the committed wall (a block without a probe is
+            held to its absolute walls).
   PA-MEM    ``argument_bytes`` and ``output_bytes``, the bytes of the
             call's array arguments and outputs (deterministic, tight band),
             and on the card ``temp_bytes`` (the peak allocation above the
@@ -67,7 +74,7 @@ DEFAULT_BEST_OF = 5
 DEFAULT_REMEASURE = 5
 
 #: one-sided tolerance bands (relative) + absolute floors (the reference's)
-EXECUTE_RTOL = 1.0  # fire past 2x the committed execute wall
+EXECUTE_RTOL = 1.0  # fire past 2x the committed execute wall (host-scaled)
 EXECUTE_ATOL_MS = 1.0
 COMPILE_RTOL = 1.0
 COMPILE_ATOL_MS = 500.0
@@ -75,6 +82,11 @@ MEM_RTOL = 0.25  # deterministic bytes
 DEVICE_MEM_RTOL = 0.5  # measured peak device delta (runtime, loose)
 
 MEM_KEYS = ("argument_bytes", "output_bytes", "temp_bytes")
+
+#: the host probe: PROBE_OPS in-place adds on a 16-element tensor, then one
+#: host read, best of PROBE_RUNS (the shape of a launch-bound program)
+PROBE_OPS = 64
+PROBE_RUNS = 21
 
 #: kernels measured at scaled batch shapes beyond the registered one (the
 #: reference's table): name -> (base batch length of the registered
@@ -285,11 +297,48 @@ def _execute_best_of(clock, fn, args, kwargs, best_of: int) -> float:
 
 def _prepare(dev) -> None:
     """Build the hand-kernel libraries before anything is timed (a no-op
-    once they are on disk)."""
+    once they are on disk), and make the first float32 matrix product, so
+    that cuBLAS's workspace (32 MiB on Hopper, allocated at its first use
+    in the process) is not charged to the first cell's peak."""
     if dev.type == "cuda":
+        import torch
+
         from ..ops import strings_cuda
 
         strings_cuda.build()
+        one = torch.ones((2, 2), dtype=torch.float32, device=dev)
+        (one @ one).sum().item()
+
+
+def host_probe_ms(dev) -> float:
+    """Best-of-:data:`PROBE_RUNS` wall (ms) of :data:`PROBE_OPS` tiny
+    in-place adds and one host read on ``dev``: what the host's dispatch
+    costs now, the yardstick a time band scales by."""
+    import torch
+
+    x = torch.zeros(16, dtype=torch.float32, device=dev)
+
+    def once() -> float:
+        t0 = time.perf_counter()
+        for _ in range(PROBE_OPS):
+            x.add_(1.0)
+        x[0].item()
+        return (time.perf_counter() - t0) * 1e3
+
+    once()
+    return min(once() for _ in range(PROBE_RUNS))
+
+
+def _host_scale(base_probe, dev) -> tuple[float, str]:
+    """(scale, note) of a time band: how much slower the host probe runs
+    now than when the tier was measured, at least 1; 1 and no note when
+    the tier recorded no probe."""
+    if not base_probe:
+        return 1.0, ""
+    now = host_probe_ms(dev)
+    scale = max(1.0, now / float(base_probe))
+    return scale, (f" [host probe {now:.4f} ms against the tier's "
+                   f"{float(base_probe):.4f}: band x{scale:.2f}]")
 
 
 def measure_cell(cell: PerfShape, best_of: int = DEFAULT_BEST_OF, device=None) -> dict:
@@ -325,14 +374,19 @@ def measure_cell(cell: PerfShape, best_of: int = DEFAULT_BEST_OF, device=None) -
     return record
 
 
-def _remeasure_execute(cell: PerfShape, k: int, best_of: int, dev) -> float:
+def _remeasure_execute(cell: PerfShape, k: int, best_of: int, dev,
+                       base_probe=None) -> tuple[float, float, str]:
     """Median of K fresh best-of-N execute measurements (the PA-TIME noise
-    guard)."""
+    guard), with the host scale probed after each: (median ms, median
+    scale, the last probe's note)."""
     _, (fn, args, kwargs) = _cell(cell, dev)
     clock = _Clock(dev)
-    return statistics.median(
-        _execute_best_of(clock, fn, args, kwargs, best_of) for _ in range(max(k, 1))
-    )
+    walls, scales, note = [], [], ""
+    for _ in range(max(k, 1)):
+        walls.append(_execute_best_of(clock, fn, args, kwargs, best_of))
+        scale, note = _host_scale(base_probe, dev)
+        scales.append(scale)
+    return statistics.median(walls), statistics.median(scales), note
 
 
 # ---------------------------------------------------------------------------
@@ -340,9 +394,11 @@ def _remeasure_execute(cell: PerfShape, k: int, best_of: int, dev) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _over_band(want: float, got: float, rtol: float, atol: float) -> bool:
+def _over_band(want: float, got: float, rtol: float, atol: float, scale: float = 1.0) -> bool:
     """One-sided: fires only when the measurement regressed past BOTH the
-    relative band and the absolute floor."""
+    relative band and the absolute floor, the committed value taken
+    ``scale`` times (the host scale of a time band)."""
+    want = want * scale
     return got > want * (1.0 + rtol) and got - want > atol
 
 
@@ -362,9 +418,11 @@ def audit_cell(
     remeasure: int = DEFAULT_REMEASURE,
     device=None,
     measured: dict | None = None,
+    base_probe: float | None = None,
 ) -> list[Finding]:
     """Measure one (kernel, shape) (unless ``measured`` is given) and
-    compare against its committed baseline with the PA-* bands."""
+    compare against its committed baseline with the PA-* bands, the time
+    bands scaled by the host probe against ``base_probe`` (the tier's)."""
     from .trace_audit import _resolve
 
     findings: list[Finding] = []
@@ -396,7 +454,7 @@ def audit_cell(
     refresh = f"if the change is intended, refresh with `{REFRESH}`"
     for metric, rtol, atol, remeasure_fn in (
         ("execute_ms", EXECUTE_RTOL, EXECUTE_ATOL_MS,
-         lambda: _remeasure_execute(cell, remeasure, best_of, dev)),
+         lambda: _remeasure_execute(cell, remeasure, best_of, dev, base_probe)),
         ("compile_ms", COMPILE_RTOL, COMPILE_ATOL_MS, None),
     ):
         want = baseline.get(metric)
@@ -405,16 +463,18 @@ def audit_cell(
             continue
         if _over_band(float(want), float(got), rtol, atol):
             if remeasure_fn is None:
-                fail("PA-TIME", _drift_msg(metric, float(want), float(got), rtol),
-                     "a measured first-call regression on this kernel; " + refresh)
+                scale, note = _host_scale(base_probe, dev)
+                if _over_band(float(want), float(got), rtol, atol, scale):
+                    fail("PA-TIME", _drift_msg(metric, float(want), float(got), rtol) + note,
+                         "a measured first-call regression on this kernel; " + refresh)
                 continue
-            median = remeasure_fn()
-            if _over_band(float(want), float(median), rtol, atol):
+            median, scale, note = remeasure_fn()
+            if _over_band(float(want), float(median), rtol, atol, scale):
                 fail(
                     "PA-TIME",
                     _drift_msg(metric, float(want), float(median), rtol)
                     + f" [median of {remeasure} re-runs; first "
-                    f"measurement {float(got):.3f}]",
+                    f"measurement {float(got):.3f}]" + note,
                     "a measured runtime regression on this kernel; " + refresh,
                 )
     for metric in MEM_KEYS:
@@ -470,7 +530,9 @@ def run_perf_audit(
     plan = perf_plan(names, tier)
     if baselines is None:
         baselines = load_baselines()
-    per_kernel = baselines.get("tiers", {}).get(tier, {}).get("kernels", {})
+    block = baselines.get("tiers", {}).get(tier, {})
+    per_kernel = block.get("kernels", {})
+    base_probe = block.get("_meta", {}).get("host_probe_ms")
     findings: list[Finding] = []
     for cell in plan:
         base = per_kernel.get(cell.kernel, {}).get(cell.label)
@@ -486,7 +548,8 @@ def run_perf_audit(
         if measured_out is not None:
             measured_out[f"{cell.kernel}@{cell.label}"] = measured
         findings.extend(audit_cell(cell, base, best_of=best_of, remeasure=remeasure,
-                                   device=device, measured=measured))
+                                   device=device, measured=measured,
+                                   base_probe=base_probe))
     return findings, len(plan)
 
 
@@ -538,8 +601,12 @@ def update_baselines(
         kernels.setdefault(cell.kernel, {})[cell.label] = measure_cell(
             cell, best_of=best_of, device=device
         )
+    from .trace_audit import _resolve
+
+    meta = device_meta(device)
+    meta["host_probe_ms"] = round(host_probe_ms(_resolve(device)), 4)
     tiers[tier] = {
-        "_meta": device_meta(device),
+        "_meta": meta,
         "kernels": {
             k: {s: kernels[k][s] for s in sorted(kernels[k])}
             for k in sorted(kernels)
@@ -551,8 +618,10 @@ def update_baselines(
             "refresh": REFRESH,
             "bands": {
                 "execute_ms": f"+{EXECUTE_RTOL * 100:.0f}% "
-                f"(floor {EXECUTE_ATOL_MS}ms, median-of-{DEFAULT_REMEASURE} guard)",
-                "compile_ms": f"+{COMPILE_RTOL * 100:.0f}% (floor {COMPILE_ATOL_MS}ms)",
+                f"(floor {EXECUTE_ATOL_MS}ms, median-of-{DEFAULT_REMEASURE} guard, "
+                "scaled by the host probe)",
+                "compile_ms": f"+{COMPILE_RTOL * 100:.0f}% (floor {COMPILE_ATOL_MS}ms, "
+                "scaled by the host probe)",
                 "memory_bytes": f"+{MEM_RTOL * 100:.0f}%",
             },
         },

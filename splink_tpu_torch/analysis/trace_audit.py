@@ -720,7 +720,7 @@ def _ensure_default_registry() -> None:
 
         def fn(il, ir, valid, acc):
             pid = program.pattern_ids(program.gamma_batch(il, ir))
-            pos = torch.arange(pid.shape[0], device=pid.device)
+            pos = torch.arange(pid.shape[0], dtype=torch.int64, device=pid.device)
             counted = torch.where(pos >= valid, program.n_patterns, pid)
             return (program.narrow_ids(pid),
                     acc + pattern_histogram(counted, program.n_patterns + 1))

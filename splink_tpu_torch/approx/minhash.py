@@ -151,6 +151,7 @@ def _neg_log_f32(hk):
     value), so the card and the CPU race on the same bits; the
     reference's float32 log can sit an ulp away from it."""
     u = (hk.to(torch.float32) + 0.5) * 2.0 ** -32
+    # torchlint: disable=JL005 (the race log in float64, rounded once to float32: the card and the CPU race on the same bits)
     return (-torch.log(u.to(torch.float64))).to(torch.float32)
 
 
@@ -177,13 +178,15 @@ def minhash_signatures(cols, lens, q: int, a, b, salts, idf=None):
     dev = a.device
     n = cols[0].shape[0]
     n_hashes = a.shape[0]
+    # torchlint: disable=JL003 (0-d constants, once per chunk: counted in approx_minhash's cuda allow_syncs)
     no_sig = torch.tensor(_NO_SIG_I, dtype=torch.int64, device=dev)
     sig = torch.full((n, n_hashes), _NO_SIG_I, dtype=torch.int64, device=dev)
     if idf is not None:
-        inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+        inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)  # torchlint: disable=JL003 (the weighted race's 0-d infinity, once per chunk)
         best_e = torch.full((n, n_hashes), float("inf"), dtype=torch.float32, device=dev)
     has = torch.zeros(n, dtype=torch.bool, device=dev)
     for c in range(len(cols)):
+        # torchlint: disable=JL003 (salts are host ints, not device values)
         h, valid = _gram_hashes(cols[c], lens[c], q, int(salts[c]))
         hk = (_mul32(h[:, :, None], a) + b) & _M32
         hk = hk ^ (hk >> 13)

@@ -101,10 +101,7 @@ def run_em(
         designs = [level_design(g, max_levels, dtype) for g in shards]
     while it < max_iterations and not converged:
         on_shards = _replicate(params, shards)
-        new = update_params(reduce_shards([
-            sufficient_stats(g, match_probability(g, p), max_levels, w, d)
-            for g, w, d, p in zip(shards, w_shards, designs, on_shards)
-        ]))
+        new = update_params(shard_stats(shards, w_shards, on_shards, max_levels, designs))
         delta = torch.maximum(
             torch.max(torch.abs(new.m - params.m)),
             torch.max(torch.abs(new.u - params.u)),
@@ -114,6 +111,7 @@ def run_em(
             # ll under the PRE-update params, archived at the pre-update
             # index (the reference computes it in the E-step)
             ll_pre = _log_likelihood(shards, w_shards, on_shards)
+        # torchlint: disable=JL003 (the one host read per update, the convergence flag)
         converged = bool(delta < tol)  # the one host read per update
         if on_update is not None:
             on_update(it + 1, new, ll_pre, converged)
@@ -128,10 +126,10 @@ def run_em(
         params=params,
         n_updates=it,
         converged=converged,
-        lam_history=lam_h.cpu().numpy(),
-        m_history=m_h.cpu().numpy(),
-        u_history=u_h.cpu().numpy(),
-        ll_history=ll_h.cpu().numpy(),
+        lam_history=lam_h.cpu().numpy(),  # torchlint: disable=JL003 (the lambda history copies to the host once, at the end)
+        m_history=m_h.cpu().numpy(),  # torchlint: disable=JL003 (the m history copies to the host once, at the end)
+        u_history=u_h.cpu().numpy(),  # torchlint: disable=JL003 (the u history copies to the host once, at the end)
+        ll_history=ll_h.cpu().numpy(),  # torchlint: disable=JL003 (the log-likelihood history copies to the host once, at the end)
     )
 
 
@@ -142,6 +140,17 @@ def _shards_of(G, weights):
         w = weights.shards if isinstance(weights, Sharded) else (None,) * len(G.shards)
         return G.shards, w
     return (G,), (weights,)
+
+
+def shard_stats(shards, w_shards, on_shards, max_levels: int, designs=None):
+    """One E+M sufficient-statistics pass over the shards, each on its
+    device with its parameters, summed in shard order: the mesh's one
+    statistics reduction (the reference's psums)."""
+    designs = designs or [None] * len(shards)
+    return reduce_shards([
+        sufficient_stats(g, match_probability(g, p), max_levels, w, d)
+        for g, w, d, p in zip(shards, w_shards, designs, on_shards)
+    ])
 
 
 def _replicate(params: FSParams, shards) -> list[FSParams]:
@@ -243,7 +252,7 @@ def run_em_checkpointed(
             "scratch is exactly the surprise a resume caller cannot afford."
         )
     dev, dtype = init.m.device, init.m.dtype
-    m0 = init.m.cpu().numpy()
+    m0 = init.m.cpu().numpy()  # torchlint: disable=JL003 (the initial parameters seed the host histories, once)
     C, L = m0.shape
     np_dtype = m0.dtype
     n_hist = max_iterations + 1
@@ -251,11 +260,12 @@ def run_em_checkpointed(
     m_h = np.zeros((n_hist, C, L), np_dtype)
     u_h = np.zeros((n_hist, C, L), np_dtype)
     ll_h = np.full((n_hist,), np.nan, np_dtype)
-    lam_h[0] = init.lam.cpu().numpy()
+    lam_h[0] = init.lam.cpu().numpy()  # torchlint: disable=JL003 (the initial lambda seeds the host history, once)
     m_h[0] = m0
-    u_h[0] = init.u.cpu().numpy()
+    u_h[0] = init.u.cpu().numpy()  # torchlint: disable=JL003 (the initial u seeds the host history, once)
 
     def to_params(lam, m, u):
+        # torchlint: disable=JL003 (a resumed checkpoint's parameters upload once)
         t = lambda a: torch.as_tensor(np.asarray(a, np_dtype), dtype=dtype, device=dev)  # noqa: E731
         return FSParams(lam=t(lam), m=t(m), u=t(u))
 
@@ -295,6 +305,7 @@ def run_em_checkpointed(
     def _save(iteration, conv):
         if checkpoint_dir is None or not is_writer:
             return
+        # torchlint: disable=JL009 (single writer: only process 0 persists; no collective is reached)
         save_checkpoint(
             checkpoint_dir,
             EMCheckpoint(
@@ -325,7 +336,7 @@ def run_em_checkpointed(
     start = done
     remaining = max_iterations - done
     hook_needed = (checkpoint_dir is not None or on_segment is not None
-                   or (fault_plan is not None and bool(fault_plan))
+                   or (fault_plan is not None and bool(fault_plan))  # torchlint: disable=JL003 (fault_plan is a host object)
                    or telemetry is not None)
 
     def hook(it_rel, new, ll_pre, conv):
@@ -370,7 +381,7 @@ def run_em_checkpointed(
             em_convergence=em_convergence, weights=weights, compute_ll=compute_ll,
             on_update=hook if hook_needed else None,
         )
-        n_rel = int(result.n_updates)
+        n_rel = int(result.n_updates)  # torchlint: disable=JL003 (EMResult.n_updates is a host int)
         # the hook already wrote these indices; the merge rewrites them with
         # the same values and is what the hook-free path relies on
         lam_h[start + 1 : start + n_rel + 1] = result.lam_history[1 : n_rel + 1]
@@ -380,7 +391,7 @@ def run_em_checkpointed(
             ll_h[start : start + n_rel + 1] = result.ll_history[: n_rel + 1]
         params = result.params
         done = start + n_rel
-        converged = bool(result.converged)
+        converged = bool(result.converged)  # torchlint: disable=JL003 (EMResult.converged is a host bool)
         if checkpoint_dir is not None:
             # the last in-loop save could not include the final log
             # likelihood (computed after the loop); re-save so that a resume

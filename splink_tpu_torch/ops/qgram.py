@@ -52,7 +52,7 @@ def _gram_codes(s, length, q: int):
     per_word = 63 // bpc
     L = s.shape[1]
     n_windows = max(L - q + 1, 1)
-    t = torch.arange(n_windows, device=s.device)
+    t = torch.arange(n_windows, dtype=torch.int64, device=s.device)
     chars = s.to(torch.int64)
     words = []
     for w0 in range(0, q, per_word):
@@ -76,7 +76,7 @@ def _eq(wa, wb, va, vb):
 def _firsts(eq_self, valid):
     """Windows that are valid and the first occurrence of their gram."""
     n = valid.shape[1]
-    idx = torch.arange(n, device=valid.device)
+    idx = torch.arange(n, dtype=torch.int64, device=valid.device)
     earlier = idx[None, :] < idx[:, None]  # [t, t'] iff t' comes before t
     return valid & ~(eq_self & earlier).any(dim=2)
 
@@ -125,7 +125,7 @@ def qgram_cosine_distance(s1, s2, l1, l2, q: int = 2):
 def _mask_bits(m, n: int):
     """(B, n) bool: bit t of the packed (B, lanes) int32 mask, False past
     the lanes' 32 * lanes bits."""
-    idx = torch.arange(n, device=m.device)
+    idx = torch.arange(n, dtype=torch.int64, device=m.device)
     lane = torch.clamp(idx // 32, max=m.shape[1] - 1)
     bits = ((m[:, lane] >> (idx % 32)) & 1) == 1
     return bits & (idx < m.shape[1] * 32)
@@ -176,7 +176,7 @@ def charset_jaccard(s1, s2, l1, l2, q: int | None = None):
     Jaccard rounded half-up to two decimals, (B,) float32. s1 and s2 have
     one width."""
     L = s1.shape[1]
-    idx = torch.arange(L, device=s1.device)
+    idx = torch.arange(L, dtype=torch.int64, device=s1.device)
     va = idx[None, :] < l1[:, None]
     vb = idx[None, :] < l2[:, None]
     earlier = idx[None, :] < idx[:, None]
@@ -203,7 +203,7 @@ def charset_jaccard_masked(s1, s2, l1, l2, m1, da1, sp1, da2, sp2, q: int | None
     packed table: only the cross character matrix is built per pair.
     Bit-identical results; s1 may be wider than the mask was built at."""
     fns = _mask_bits(m1, s1.shape[1])
-    vb = torch.arange(s2.shape[1], device=s2.device)[None, :] < l2[:, None]
+    vb = torch.arange(s2.shape[1], dtype=torch.int64, device=s2.device)[None, :] < l2[:, None]
     present_in_b = ((s1[:, :, None] == s2[:, None, :]) & vb[:, None, :]).any(dim=2)
     inter_ns = (fns & present_in_b).sum(dim=1, dtype=torch.int32)
     return _charset_value(inter_ns, da1, da2, sp1 > 0, sp2 > 0, l1, l2, q)

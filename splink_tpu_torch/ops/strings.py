@@ -43,6 +43,7 @@ def _three(device, dtype=torch.float32):
     Python float, keeps a true division on CUDA: PyTorch turns division by
     a CPU scalar into multiplication by its reciprocal there, which rounds
     differently from the reference's (and the kernel's) division."""
+    # torchlint: disable=JL003 (a true division on CUDA needs a 0-d tensor, not a Python float)
     return torch.tensor(3.0, dtype=dtype, device=device)
 
 
@@ -134,10 +135,12 @@ def _jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold, dtype):
     run = torch.cumprod(((s1 == s2) & (idx[None, :] < la[:, None])).to(torch.int64), dim=1)
     ell = run.sum(dim=1).to(dtype)  # NOT capped (jar)
     scale = torch.minimum(
+        # torchlint: disable=JL003 (the plain version's 0-d constants, as the reference's)
         torch.tensor(prefix_scale, dtype=dtype, device=dev),
         1.0 / torch.clamp(lb.to(dtype), min=1.0),
     )
     boosted = jaro + ell * scale * (1.0 - jaro)
+    # torchlint: disable=JL003 (the plain version's 0-d boost threshold, as the reference's)
     below = jaro < torch.tensor(boost_threshold, dtype=dtype, device=dev)
     return torch.where(below, jaro, boosted)
 

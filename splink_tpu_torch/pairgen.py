@@ -726,8 +726,9 @@ def unit_decode(q, order, ua, la, ub, lb, pc):
     t = q - pc[u]
     A, LA, Bs, LB = ua[u], la[u], ub[u], lb[u]
     tri = A == Bs
+    # torchlint: disable=JL005 (the triangle decode's float64 square root, exact for int32 counts)
     two_l = (2 * LA - 1).to(torch.float64)
-    disc = two_l**2 - 8 * t.to(torch.float64)
+    disc = two_l**2 - 8 * t.to(torch.float64)  # torchlint: disable=JL005 (the triangle decode's float64 discriminant, exact for int32 counts)
     a_t = torch.floor((two_l - torch.sqrt(torch.clamp(disc, min=0.0))) / 2).to(torch.int64)
 
     def off(a):

@@ -65,7 +65,9 @@ def initialize_multihost(
     no-op (a single-process run). Explicit arguments that fail to connect
     raise: a misconfigured cluster must not silently degrade to one host.
     ``backend`` None is PyTorch's default (NCCL for CUDA tensors, Gloo for
-    CPU tensors); ranks that share one GPU must pass ``"gloo"``."""
+    CPU tensors); ranks that share one GPU must pass ``"gloo"``. Where a
+    card is present the process binds to its own first (:func:`_local_card`),
+    so the default ``cuda`` device of every entry point is that card."""
     if distributed_is_initialized():
         return  # already initialised
     explicit = coordinator_address is not None
@@ -79,6 +81,8 @@ def initialize_multihost(
                     "and no %s in the environment); running single-process",
                     "/".join(_TORCHRUN_ENV))
         return
+    if torch.cuda.is_available():
+        torch.cuda.set_device(_local_card(process_id))
     try:
         dist.init_process_group(backend=backend, timeout=TIMEOUT, **kwargs)
     except (ValueError, RuntimeError) as e:
@@ -88,6 +92,19 @@ def initialize_multihost(
                 f"{coordinator_address!r}: {e}"
             ) from e
         raise
+
+
+def _local_card(process_id: int | None) -> int:
+    """The card this process computes on: ``LOCAL_RANK`` where the launcher
+    sets it (torchrun does), else the rank (``process_id``, or ``RANK``)
+    modulo the visible cards. The reference's processes each get their own
+    local devices from ``jax.distributed.initialize``; without this every
+    rank would take the current device, ``cuda:0``, and NCCL refuses two
+    ranks on one card. On one card every rank maps to ``cuda:0``."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    rank = process_id if process_id is not None else int(os.environ["RANK"])
+    return rank % torch.cuda.device_count()
 
 
 def _all_gather(flat: torch.Tensor) -> list[torch.Tensor]:

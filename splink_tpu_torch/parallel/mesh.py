@@ -29,6 +29,13 @@ DATA_AXIS = "data"
 # larger one is refused as there.
 CPU_VISIBLE_DEVICES = 8
 
+# calls of reduce_shards so far, the port's collectives: the shard audit
+# counts them over a call, as strings_cuda.launches counts kernel launches
+reductions = 0
+# above 0 while reduce_shards sums: the shard audit tells the reduction's
+# cross-shard additions from a gather by it
+reducing = 0
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -180,8 +187,14 @@ def reduce_shards(parts):
     tensors) on the first part's device, added in shard order: the port's
     counterpart of the mesh ``psum``, with one fixed order so a run is
     deterministic."""
-    sums = _leaves(parts[0])
-    dev = sums[0].device
-    for p in parts[1:]:
-        sums = [a + b.to(dev) for a, b in zip(sums, _leaves(p))]
-    return _rebuild(parts[0], iter(sums))
+    global reductions, reducing
+    reductions += 1
+    reducing += 1
+    try:
+        sums = _leaves(parts[0])
+        dev = sums[0].device
+        for p in parts[1:]:
+            sums = [a + b.to(dev) for a, b in zip(sums, _leaves(p))]
+        return _rebuild(parts[0], iter(sums))
+    finally:
+        reducing -= 1

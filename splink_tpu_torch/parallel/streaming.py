@@ -61,6 +61,13 @@ def _sharded_batch_stats(mesh, G, w, params: FSParams, max_levels: int, dtype,
     else:
         w = w.cpu() if isinstance(w, torch.Tensor) else w
         G, w, _pad = shard_pairs(mesh, G, np.asarray(w, np.float32))
+    return _shard_batch_stats(G, w, params, max_levels, dtype, compute_ll)
+
+
+def _shard_batch_stats(G, w, params: FSParams, max_levels: int, dtype, compute_ll: bool):
+    """A sharded batch's per-shard stats and log likelihoods (``G``, ``w``
+    :class:`~.mesh.Sharded`), summed on the first shard's device in shard
+    order."""
     parts = [
         _batch_stats(g, FSParams(*(t.to(g.device) for t in params)), max_levels,
                      ws.to(dtype), compute_ll)
@@ -181,13 +188,14 @@ def run_em_streamed(
         params = new
         # the one host read per pass: the convergence decision and the
         # histories need these scalars
+        # torchlint: disable=JL011 (the one host read per pass: the log likelihood)
         ll_total = float(ll_dev) if compute_ll else 0.0
-        lam_hist.append(float(params.lam))
+        lam_hist.append(float(params.lam))  # torchlint: disable=JL011 (the one host read per pass: lambda for the history)
         m_hist.append(params.m.cpu().numpy())
         u_hist.append(params.u.cpu().numpy())
         if compute_ll:
             ll_hist.append(ll_total)
-        converged_now = bool(delta < em_convergence)
+        converged_now = bool(delta < em_convergence)  # torchlint: disable=JL011 (the one host read per pass: the convergence decision)
         if telemetry is not None:
             telemetry.em_update(it, lam_hist[-1], m_hist[-1], u_hist[-1],
                                 ll_total if compute_ll else None, converged_now)

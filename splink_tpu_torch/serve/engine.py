@@ -139,8 +139,9 @@ def _top_k_rowwise(scores, k: int):
     passes as in the reference. A taken slot is masked with -2."""
     c = scores.shape[1]
     col = torch.arange(c, dtype=torch.int64, device=scores.device)[None, :]
+    # torchlint: disable=JL003 (the top-k's device constants: counted in serve_score_*'s cuda allow_syncs)
     big = torch.tensor(c, dtype=torch.int64, device=scores.device)
-    taken = torch.tensor(-2.0, dtype=scores.dtype, device=scores.device)
+    taken = torch.tensor(-2.0, dtype=scores.dtype, device=scores.device)  # torchlint: disable=JL003 (the top-k's mask constant: counted in serve_score_*'s cuda allow_syncs)
     masked = scores
     vals, idxs = [], []
     for _ in range(k):
@@ -160,6 +161,7 @@ def _finish_topk(p, cand, valid, k: int):
     the -2 mask once its real entries are exhausted; ``top_p > -0.5``
     keeps such re-picks from reading slot 0's valid flag."""
     q_n, capacity = cand.shape
+    # torchlint: disable=JL003 (the invalid slots' -1: counted in serve_score_*'s cuda allow_syncs)
     neg = torch.tensor(-1.0, dtype=p.dtype, device=p.device)
     scores = torch.where(valid.reshape(-1), p, neg).reshape(q_n, capacity)
     top_p, top_i = _top_k_rowwise(scores, k)

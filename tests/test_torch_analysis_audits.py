@@ -307,6 +307,30 @@ def test_doctored_time_baseline_fires_pa_time(tf_gather_baselines, monkeypatch):
     assert [f for f in findings if f.rule == "PA-TIME"] == []
 
 
+def test_host_probe_scales_time_bands_one_sided(tf_gather_baselines, monkeypatch):
+    """A tier block's ``host_probe_ms`` scales its time bands by how much
+    slower the same probe runs now: a host 1000x slower than the tier's
+    excuses a 10x wall, a faster host never tightens the committed one,
+    and the finding names the probe."""
+    monkeypatch.setattr(pa, "EXECUTE_ATOL_MS", 0.0)
+    doctored = copy.deepcopy(tf_gather_baselines)
+    kern = doctored["tiers"][CPU]["kernels"]["tf_gather"]
+    kern["reg"]["execute_ms"] = kern["reg"]["execute_ms"] / 10.0
+    now = pa.host_probe_ms(torch.device(CPU))
+    assert now > 0
+    doctored["tiers"][CPU]["_meta"] = {"host_probe_ms": now / 1000.0}
+    findings, _ = pa.run_perf_audit(["tf_gather"], doctored, best_of=2, remeasure=2,
+                                    device=CPU)
+    assert [f for f in findings if f.rule == "PA-TIME"] == []
+    doctored["tiers"][CPU]["_meta"] = {"host_probe_ms": now * 1000.0}
+    findings, _ = pa.run_perf_audit(["tf_gather"], doctored, best_of=2, remeasure=2,
+                                    device=CPU)
+    time_findings = [f for f in findings if f.rule == "PA-TIME"]
+    assert [f.path for f in time_findings] == ["tf_gather@reg"]
+    assert "host probe" in time_findings[0].message
+    assert "band x1.00" in time_findings[0].message
+
+
 def test_doctored_mem_baseline_fires_pa_mem(tf_gather_baselines):
     doctored = copy.deepcopy(tf_gather_baselines)
     kern = doctored["tiers"][CPU]["kernels"]["tf_gather"]
@@ -358,6 +382,7 @@ def test_update_perf_baselines_keeps_other_tiers(tmp_path):
     assert "tf_gather" in new["tiers"][CPU]["kernels"]
     on_disk = json.loads(path.read_text())
     assert on_disk["tiers"][CPU]["_meta"]["device"].startswith("cpu")
+    assert on_disk["tiers"][CPU]["_meta"]["host_probe_ms"] > 0
     findings, _ = pa.run_perf_audit(["tf_gather"], on_disk, best_of=2, remeasure=2,
                                     device=CPU)
     assert findings == []
@@ -377,6 +402,7 @@ def test_committed_perf_baselines_cover_both_tiers():
             assert (rec["peak_device_bytes"] is None) == (tier == CPU)
     meta = baselines["tiers"]["cuda"]["_meta"]
     assert "H100" in meta["device"] and " W" in meta["nvidia_smi"]
+    assert meta["host_probe_ms"] > 0  # measured with the cells it scales
 
 
 def test_excluded_kernels_documented():

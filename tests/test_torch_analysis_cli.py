@@ -1,11 +1,12 @@
 """``python -m splink_tpu_torch.analysis``: its exit codes, in subprocesses.
 
 0 clean: the trace and num audits over the whole registry on the CPU (the
-acceptance gate, as the README runs it). 1 findings: the num audit against
-a budget file doctored to zero for one kernel. 2 usage: no audit asked
-for, an unknown kernel, and each layer the port has not ported yet (paths
-to lint, ``--thread-audit``, ``--shard-audit``), whose message names the
-ROADMAP item that will port it.
+acceptance gate, as the README runs it), a lint of a clean file, and the
+shard audit of one kernel. 1 findings: the num audit against a budget file
+doctored to zero for one kernel. 2 usage: no audit asked for, an unknown
+kernel, rule or shard kernel, and the layer the port has not ported yet
+(``--thread-audit``), whose message names the ROADMAP item that will port
+it.
 """
 
 import json
@@ -58,9 +59,9 @@ def test_findings_exit_1(tmp_path):
 USAGE_CASES = [
     ([], "give at least one of"),
     (["--audit", "--device", "cpu", "--kernels", "no_such_kernel"], "no_such_kernel"),
-    (["splink_tpu_torch"], "item 12b"),
-    (["--thread-audit"], "item 12b"),
-    (["--shard-audit"], "item 12b"),
+    (["--thread-audit"], "item 12b-3"),
+    (["splink_tpu_torch", "--rules", "JL999"], "JL999"),
+    (["--shard-audit", "--device", "cpu", "--kernels", "no_such_shard"], "no_such_shard"),
 ]
 
 
@@ -94,6 +95,24 @@ def test_usage_errors_exit_2(usage_runs, case):
     rc, err = usage_runs[case]
     assert rc == 2, err
     assert USAGE_CASES[case][1] in err
+
+
+def test_lint_of_a_clean_file_exits_0(tmp_path):
+    path = tmp_path / "clean.py"
+    path.write_text("import torch\n\n\ndef f(n):\n"
+                    "    return torch.arange(n, dtype=torch.int32)\n")
+    proc = _run([str(path), "--json"])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    report = json.loads(proc.stdout)
+    assert report["clean"] and report["files_checked"] == 1
+
+
+def test_shard_audit_of_one_kernel_exits_0():
+    proc = _run(["--shard-audit", "--device", "cpu", "--kernels", "score_pairs_sharded",
+                 "--json"])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    report = json.loads(proc.stdout)
+    assert report["clean"] and report["shard_kernels_audited"] == 1
 
 
 def test_list_perf_kernels():

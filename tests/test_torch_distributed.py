@@ -76,6 +76,32 @@ def test_initialize_multihost_explicit_misconfig_raises():
     assert not dist.distributed_is_initialized()
 
 
+@pytest.mark.parametrize("env, process_id, card", [
+    ({"LOCAL_RANK": "3", "RANK": "7", "WORLD_SIZE": "8", "MASTER_ADDR": "h",
+      "MASTER_PORT": "1"}, None, 3),   # torchrun: LOCAL_RANK names the card
+    ({}, 5, 1),                         # explicit rank 5 of 4 cards: 5 % 4
+])
+def test_initialize_multihost_binds_the_rank_to_its_card(monkeypatch, env, process_id, card):
+    # each rank computes on its own card: set_device runs before the group
+    # is joined (4 visible cards, init_process_group stubbed)
+    calls = []
+    for k in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set_device", d)))
+    monkeypatch.setattr(dist.dist, "init_process_group",
+                        lambda **kw: calls.append(("init_process_group", kw.get("rank"))))
+    if process_id is None:
+        dist.initialize_multihost()
+    else:
+        dist.initialize_multihost(coordinator_address="localhost:1", num_processes=8,
+                                  process_id=process_id)
+    assert calls == [("set_device", card), ("init_process_group", process_id)]
+
+
 @pytest.mark.parametrize("n_procs", [2, 3, 8])
 @pytest.mark.parametrize("n_pairs", [0, 1, 7, 1000, 1001])
 def test_slices_partition_the_pair_axis(monkeypatch, n_procs, n_pairs):

@@ -166,6 +166,17 @@ def _remote(server, **over):
     return RemoteReplica(f"127.0.0.1:{server.port}", **kw)
 
 
+def _wait_served(svcs, n: int) -> None:
+    """Block until the services have counted ``n`` served requests between
+    them. A service delivers a batch's results before it counts them, as
+    the reference's does, so a read right after the last ``result()`` can
+    miss the last batch."""
+    deadline = time.monotonic() + WAIT
+    while sum(s.fleet_stats()["counters"]["served"] for s in svcs) < n:
+        assert time.monotonic() < deadline, "services never counted every delivery"
+        time.sleep(0.005)
+
+
 def _remote_events(cap, remote):
     return [
         e for e in cap.of("request_trace")
@@ -1041,6 +1052,7 @@ def test_service_fleet_stats_cross_the_wire_whole(engine):
     try:
         for r in records[:12]:
             assert not remote.submit(dict(r)).result(timeout=WAIT).shed
+        _wait_served([svc], 12)
         local = svc.fleet_stats()
         pulled = remote.fetch_stats()
         assert "drift" not in local
@@ -1065,6 +1077,7 @@ def test_aggregator_over_two_real_services_merges_bit_exact(engine):
     try:
         for i, r in enumerate(records[:30]):
             assert not remotes[i % 2].submit(dict(r)).result(timeout=WAIT).shed
+        _wait_served(svcs, 30)
         agg = FleetAggregator(remotes=remotes)
         merged = agg.scrape(force=True)
         raw = agg.raw_snapshots()
