@@ -95,6 +95,24 @@ counted), restarts it, partitions B from its accept site (a
 (``wire_reconnect`` in the flight recorder), federates both replicas
 (merged counters and histograms equal to the union, both in the
 Prometheus text) and opens B's breaker for exactly one incident bundle.
+The ``thread`` phase, right after ``fleet``, turns ``SPLINK_TPU_LOCKWATCH``
+on (every lock it builds is watched, with a 50 us jitter before each
+acquisition): two scratch locks taken in opposite orders must give one
+inversion, one ``lock_inversion`` event and a flight dump whose lock graph
+carries the cycle; then two engine, service and wire server stacks over the
+serve phase's index on the card, warmed from the fleet's AOT sidecar (0
+builds), a RemoteReplica over each and a router hedging at 30 ms over both
+take a storm at a 1e-5 s switch interval with three injected connection
+drops: three router threads each submitting the same 1,024 queries (128 in
+flight at a time), one thread submitting 2,000 to service A, two pollers. It raises unless no
+future waits past 60 s nor thread past 180 s (the reference smoke's
+bounds), no exception escapes, every future resolves,
+service A counts every submission, ``hedge_wins <= hedges <=
+dispatched``, no inversion is observed, the observed graph's union with
+the static one is acyclic, every delivered answer ``==`` the serve
+phase's batch answer, the storm launches two dense Jaro-Winkler kernels
+and one Levenshtein kernel a service batch, and nothing is built through
+a post-storm wave; ``obs summarize`` must render the concurrency section.
 The ``obs`` phase, after ``fleet``: the main path's training and scoring
 again with ``telemetry_dir`` (parameters and scores bit-identical to the
 telemetry-off run, one ``em_iteration`` record per update equal to the
@@ -126,7 +144,9 @@ package, any finding raising: ``jaro_winkler_sharded`` and
 shard, and ``jaro_winkler_sharded``'s per-shard outputs on the card must
 equal its plain version's on the CPU bit for bit; the line carries
 ``shard_audited``, ``shard_s``, ``lint_files``, ``lint_s`` and the
-audit's launches. The
+audit's launches; then numlint over the package and the thread audit over
+its 19 registered classes, any finding raising (``numlint_files``,
+``numlint_s``, ``thread_classes``, ``thread_s``, ``lock_graph_edges``). The
 ``mesh`` phase, after ``spill``: the main path's job under ``{"data": 1}``
 (a one-shard mesh; gammas unsharded as in the reference's resident regime,
 EM over ``shard_pairs``) against the unsharded main path of the same run
@@ -2308,6 +2328,7 @@ FLEET_DEADLINE_MS = 2_000.0  # each routed request's deadline
 FLEET_PARTITION_MS = 1_500
 FLEET_WAIT_S = 30.0  # bound on every wait of the phase
 FLEET_CHILD_TIMEOUT_S = 400
+FLEET_AOT = "fleet_aot"  # the serve engine's sidecar under out_dir; the thread phase removes it
 FLEET_SHED_REASONS = {"connection_lost", "remote_unreachable", "breaker_open", "deadline",
                       "timeout", "queue_full", "closed", "no_replica", "batch_error"}
 
@@ -2508,7 +2529,7 @@ def fleet_phase(torch, strings_cuda, native, tf, engine, idx_dir, qdf, answers, 
         return _expected_matches(uid, answers, i), int(answers[3][i])
 
     # -- 1. cold start from the sidecar, in child processes ----------------
-    aot_dir = os.path.join(out_dir, "fleet_aot")
+    aot_dir = os.path.join(out_dir, FLEET_AOT)
     shutil.rmtree(aot_dir, ignore_errors=True)
     t0 = time.perf_counter()
     engine.save_aot(aot_dir)
@@ -2800,6 +2821,391 @@ def fleet_phase(torch, strings_cuda, native, tf, engine, idx_dir, qdf, answers, 
     router_flight.close()
     del engines, svcs, servers, remotes, router
     shutil.rmtree(os.path.join(out_dir, "fleet_incidents"), ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return fields, launches
+
+
+# ----------------------------------------------------------------------
+# The lock-order storm: the serving fleet on the card under watched locks
+# ----------------------------------------------------------------------
+
+THREAD_ROUTER_THREADS = 3
+THREAD_ROUTER_QUERIES = 1_024  # each router thread submits the same serve queries
+THREAD_DIRECT_QUERIES = 2_000  # one thread straight into service A
+THREAD_POLLERS = 2
+THREAD_HEDGE_MS = 30.0
+THREAD_WINDOW = 128  # routed futures in flight per thread: each holds a hedge timer thread
+THREAD_QUEUE_DEPTH = 8_192  # the storm's submissions fit: answers, not queue_full sheds
+THREAD_WAVE_S = 60.0  # bound on each wait of the phase; the storm's threads get 3x, as the reference's
+THREAD_WARM_QUERIES = 64
+THREAD_SETTLE_QUERIES = 64
+THREAD_SWITCH_INTERVAL_S = 1e-5  # ~500x more preemption points than the default 5 ms
+THREAD_JITTER_US = "50"
+THREAD_FAULTS = "wire_request@kind=net_drop:times=3"
+
+
+def thread_phase(torch, strings_cuda, native, tf, idx_dir, uid, qdf, answers, out_dir,
+                 device="cuda"):
+    """The port of the reference's thread smoke at the serve phase's size:
+    with ``SPLINK_TPU_LOCKWATCH`` on (every lock the phase builds is
+    watched), a seeded inversion must be detected, published and dumped;
+    then two engine -> service -> wire server stacks over the serve
+    phase's index on ``device``, warmed from its AOT sidecar, a
+    RemoteReplica over each and a hedged router over both take a storm
+    (three router threads, one direct thread, two pollers, a lowered
+    switch interval, per-acquire jitter and injected connection drops).
+    Raises unless nothing hangs or escapes, every future resolves, the
+    counters agree, no inversion is observed, the union with the static
+    lock graph is acyclic, every delivered answer ``==`` the batch path's,
+    and nothing is built from warmup through a post-storm wave. Returns
+    (fields, kernel launches of the storm)."""
+    import shutil
+    import threading
+
+    from splink_tpu_torch.analysis import lockwatch
+    from splink_tpu_torch.analysis.threadlint import graph_cycles, run_thread_audit
+    from splink_tpu_torch.obs.cli import summarize_events
+    from splink_tpu_torch.obs.events import EventSink, publish, read_events, register_ambient
+    from splink_tpu_torch.obs.flight import FlightRecorder
+    from splink_tpu_torch.obs.metrics import compile_requests
+    from splink_tpu_torch.resilience import faults
+    from splink_tpu_torch.resilience.retry import RetryPolicy
+    from splink_tpu_torch.serve import (
+        LinkageService,
+        QueryEngine,
+        RemoteReplica,
+        ReplicaRouter,
+        WireServer,
+        load_index,
+    )
+
+    tmp = os.path.join(out_dir, "thread")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    aot_dir = os.path.join(out_dir, FLEET_AOT)
+
+    def expect(i):
+        return _expected_matches(uid, answers, i), int(answers[3][i])
+
+    env = {k: os.environ.get(k)
+           for k in (lockwatch.ENV_VAR, lockwatch.JITTER_ENV_VAR, faults.ENV_VAR)}
+    old_interval = sys.getswitchinterval()
+    # lockwatch decides at a lock's creation: on before the phase builds any
+    os.environ[lockwatch.ENV_VAR] = "1"
+    os.environ[lockwatch.JITTER_ENV_VAR] = THREAD_JITTER_US
+    os.environ.pop(faults.ENV_VAR, None)
+    faults.reset_plans()
+    lockwatch.reset()
+    fields = {}
+    events_path = os.path.join(tmp, "thread_events.jsonl")
+    sink = EventSink(events_path, run_id="chip_smoke-thread")
+    register_ambient(sink)
+    targets = []
+    try:
+        t0 = time.perf_counter()
+        findings, classes, static_graph = run_thread_audit()
+        if findings or graph_cycles(static_graph):
+            raise AssertionError("thread audit: " + "; ".join(f.format() for f in findings))
+
+        # -- 1. the seeded inversion: the detector detects -----------------
+        recorder = FlightRecorder(64, dump_dir=os.path.join(tmp, "flight"), name="thread",
+                                  min_dump_interval_s=0.0)
+        register_ambient(recorder)
+        a, b = lockwatch.new_lock("SeededA.lock"), lockwatch.new_lock("SeededB.lock")
+        with a:
+            with b:
+                pass
+        with b:
+            with a:  # the opposite order: a latent deadlock
+                pass
+        inv = lockwatch.inversions()
+        if len(inv) != 1 or not any({"SeededA.lock", "SeededB.lock"} <= set(c)
+                                    for c in lockwatch.cycles()):
+            raise AssertionError(f"the seeded inversion was not detected: {inv}")
+        _wait_for(lambda: any(e.get("type") == "lock_inversion"
+                              for e in read_events(events_path)),
+                  "the lock_inversion event in the sink", THREAD_WAVE_S)
+        _wait_for(lambda: recorder.dumps, "a flight dump on lock_inversion", THREAD_WAVE_S)
+        graph_path = lockwatch.dump_graph(os.path.join(tmp, "flight", "lock_order_graph.json"),
+                                          static_edges=static_graph["edges"])
+        with open(graph_path) as fh:
+            artifact = json.load(fh)
+        if not (artifact["inversions"] and artifact["union_cycles"]):
+            raise AssertionError(f"the dumped lock graph lacks the seeded cycle: {artifact}")
+        n_events = sum(e.get("type") == "lock_inversion" for e in read_events(events_path))
+        if n_events != 1:
+            raise AssertionError(f"{n_events} lock_inversion events for one inversion")
+        recorder.close()
+        lockwatch.reset()  # the seeded edges must not reach the fleet's gate
+        fields["seeded"] = {"inversions": len(inv), "events": n_events,
+                            "flight_dumps": len(recorder.dumps),
+                            "union_cycles": artifact["union_cycles"]}
+
+        # -- 2. the fleet on the card, warmed from the sidecar ------------
+        builds0 = compile_requests()
+        t1 = time.perf_counter()
+        stacks = []
+        for name in ("a", "b"):
+            # the serve engine's configuration, which the sidecar's binding names
+            eng = QueryEngine(load_index(idx_dir, device=device),
+                              brownout_top_k=SERVE_BROWNOUT_TOP_K, aot_dir=aot_dir)
+            warm = eng.warmup()
+            # brown-out only at a full queue: the storm's answers stay full ones
+            svc = LinkageService(eng, deadline_ms=SERVE_COALESCE_MS, probe_queries=0,
+                                 queue_depth=THREAD_QUEUE_DEPTH, brownout_fill=1.0,
+                                 name=f"thread-{name}")
+            server = WireServer(svc, name=f"thread-{name}").start()
+            stacks.append((eng, svc, server, warm))
+            targets += [server, svc]
+        (eng_a, svc_a, server_a, warm_a), (_, svc_b, server_b, _) = stacks
+        if not isinstance(eng_a._swap_lock, lockwatch._WatchedLock):
+            raise AssertionError("the phase's engine lock is not watched")
+        stale = [e.get("reason") for e in read_events(events_path)
+                 if e.get("type") == "degradation" and e.get("from") == "serve_aot"]
+        if stale:
+            raise AssertionError(f"the fleet's AOT sidecar did not validate: {stale}")
+
+        def remote(server, name):
+            return RemoteReplica(server.address, pool_size=2, name=name,
+                                 retry_policy=RetryPolicy(base_delay=0.05, max_delay=0.5),
+                                 breaker_threshold=4, breaker_cooldown_s=0.2,
+                                 connect_timeout_ms=500.0,
+                                 request_timeout_ms=THREAD_WAVE_S * 1e3)
+
+        rep_a, rep_b = remote(server_a, "remote:thread-a"), remote(server_b, "remote:thread-b")
+        router = ReplicaRouter([rep_a, rep_b], hedge_ms=THREAD_HEDGE_MS)
+        targets = [rep_a, rep_b, router, *targets]
+        setup_s = time.perf_counter() - t1
+        records = qdf.iloc[:max(THREAD_ROUTER_QUERIES, THREAD_DIRECT_QUERIES)].to_dict(
+            orient="records")
+        warm = [router.submit(records[i]) for i in range(THREAD_WARM_QUERIES)]
+        _check_results([f.result(timeout=THREAD_WAVE_S) for f in warm], expect, "warm wave")
+        builds_after_warmup = compile_requests()
+        if builds_after_warmup != builds0:
+            raise AssertionError(f"{builds_after_warmup - builds0} kernel libraries built "
+                                 "while the phase's engines warmed from the sidecar")
+
+        # a hedge's losing copy may still be in a batch: wait for both
+        # services' batch counts to settle before counting launches
+        def settled():
+            before = [svc.latency_summary()["batches"] for svc in (svc_a, svc_b)]
+            time.sleep(0.1)
+            return before == [svc.latency_summary()["batches"] for svc in (svc_a, svc_b)]
+
+        # -- 3. the storm ------------------------------------------------
+        _wait_for(settled, "the warm wave's batches to settle", THREAD_WAVE_S)
+        faults.reset_plans()
+        os.environ[faults.ENV_VAR] = THREAD_FAULTS
+        zero_counts(strings_cuda, native, tf)
+        b0 = [svc.latency_summary()["batches"] for svc in (svc_a, svc_b)]
+        direct_before = svc_a.latency_summary()
+        errors = []
+        routed = [[None] * THREAD_ROUTER_QUERIES for _ in range(THREAD_ROUTER_THREADS)]
+        direct = [None] * THREAD_DIRECT_QUERIES
+        lat = {"router": [], "direct": []}
+        lat_lock = threading.Lock()
+        stop = threading.Event()
+
+        def timed(fut, path):
+            t_submit = time.perf_counter()
+
+            def done(_):
+                ms = (time.perf_counter() - t_submit) * 1e3
+                with lat_lock:
+                    lat[path].append(ms)
+
+            fut.add_done_callback(done)
+            return fut
+
+        def storm_router(k):
+            try:
+                for start in range(0, THREAD_ROUTER_QUERIES, THREAD_WINDOW):
+                    stop_i = min(start + THREAD_WINDOW, THREAD_ROUTER_QUERIES)
+                    futs = [timed(router.submit(records[i]), "router")
+                            for i in range(start, stop_i)]
+                    for i, f in zip(range(start, stop_i), futs):
+                        routed[k][i] = f.result(timeout=THREAD_WAVE_S)
+            except Exception as e:  # noqa: BLE001 - the gate is "no exception escapes"
+                errors.append(("router", k, repr(e)))
+
+        def storm_direct():
+            try:
+                futs = [timed(svc_a.submit(records[i]), "direct")
+                        for i in range(THREAD_DIRECT_QUERIES)]
+                for i, f in enumerate(futs):
+                    direct[i] = f.result(timeout=THREAD_WAVE_S)
+            except Exception as e:  # noqa: BLE001
+                errors.append(("direct", 0, repr(e)))
+
+        polls = [0]
+
+        def poller():
+            try:
+                while not stop.is_set():
+                    svc_a.health()
+                    svc_b.latency_summary()
+                    svc_a.prometheus_samples()
+                    server_a.stats()
+                    server_b.prometheus_samples()
+                    rep_a.health_state
+                    rep_b.latency_summary()
+                    router.health()
+                    polls[0] += 1
+                    time.sleep(0.002)
+            except Exception as e:  # noqa: BLE001
+                errors.append(("poller", 0, repr(e)))
+
+        threads = ([threading.Thread(target=storm_router, args=(k,), name=f"storm-router-{k}")
+                    for k in range(THREAD_ROUTER_THREADS)]
+                   + [threading.Thread(target=storm_direct, name="storm-direct")]
+                   + [threading.Thread(target=poller, daemon=True, name=f"storm-poller-{k}")
+                      for k in range(THREAD_POLLERS)])
+        sys.setswitchinterval(THREAD_SWITCH_INTERVAL_S)
+        t2 = time.perf_counter()
+        try:
+            for th in threads:
+                th.start()
+            deadline = time.monotonic() + 3 * THREAD_WAVE_S
+            for th in threads:
+                if not th.daemon:
+                    th.join(timeout=max(deadline - time.monotonic(), 0.0))
+            storm_s = time.perf_counter() - t2
+        finally:
+            stop.set()
+            sys.setswitchinterval(old_interval)
+            os.environ.pop(faults.ENV_VAR, None)
+            faults.reset_plans()
+        hung = [th.name for th in threads if not th.daemon and th.is_alive()]
+        if hung:
+            import faulthandler
+
+            faulthandler.dump_traceback(all_threads=True)
+            progress = {f"router_{k}": sum(r is not None for r in res)
+                        for k, res in enumerate(routed)}
+            progress["direct"] = sum(r is not None for r in direct)
+            raise AssertionError(
+                f"storm threads hung past {3 * THREAD_WAVE_S} s: {hung}; resolved {progress}; "
+                f"served {[svc.latency_summary()['served'] for svc in (svc_a, svc_b)]}; "
+                f"router {router.health()['dispatched']} dispatched; "
+                f"inversions {lockwatch.inversions()}; threads {threading.active_count()}")
+        for th in threads:
+            th.join(timeout=5.0)
+        if errors:
+            raise AssertionError(f"exceptions escaped the storm: {errors[:5]}")
+
+        _wait_for(settled, "the storm's batches to settle", THREAD_WAVE_S)
+        batches = [svc.latency_summary()["batches"] - n for svc, n in zip((svc_a, svc_b), b0)]
+        launches = dict(strings_cuda.launches)
+        variants = dict(strings_cuda.variant_launches)
+        want_v = {"jaro_winkler/u8/w1": 2 * sum(batches), "levenshtein/u8/w1": sum(batches)}
+        if device == "cuda" and variants != want_v:
+            raise AssertionError(f"the storm launched {variants}, expected {want_v} "
+                                 f"({batches} service batches)")
+        delivered = {}
+        shed = {}
+        for k, res in enumerate(routed):
+            ok, deg, reasons = _check_results(res, expect, f"router thread {k}")
+            if deg:
+                raise AssertionError(f"router thread {k}: {deg} degraded answers")
+            delivered[f"router_{k}"] = ok
+            for r, n in reasons.items():
+                shed[r] = shed.get(r, 0) + n
+        ok, deg, reasons = _check_results(direct, expect, "direct thread")
+        if deg:
+            raise AssertionError(f"direct thread: {deg} degraded answers")
+        delivered["direct"] = ok
+        if not all(delivered.values()):
+            raise AssertionError(f"a storm thread got no answer: {delivered}")
+        direct_after = svc_a.latency_summary()
+        d_served = direct_after["served"] - direct_before["served"]
+        d_shed = direct_after["shed"] - direct_before["shed"]
+        if d_served + d_shed < THREAD_DIRECT_QUERIES:
+            raise AssertionError(f"service A counts {d_served} served + {d_shed} shed of "
+                                 f"{THREAD_DIRECT_QUERIES} direct submissions")
+        health = router.health()
+        if health["dispatched"] < THREAD_ROUTER_THREADS * THREAD_ROUTER_QUERIES or not (
+                health["hedge_wins"] <= health["hedges"] <= health["dispatched"]):
+            raise AssertionError(f"router counters {health}")
+        inversions = lockwatch.inversions()
+        if inversions:
+            raise AssertionError(f"lock inversions under the storm: {inversions}")
+        union_cycles = lockwatch.cycles(extra_edges=static_graph["edges"])
+        if union_cycles:
+            raise AssertionError(f"the observed order contradicts the static graph: "
+                                 f"{union_cycles}")
+        observed = lockwatch.observed_graph()
+        watched = {"QueryEngine._swap_lock", "LinkageService._lock", "ReplicaRouter._lock",
+                   "WireServer._lock", "RemoteReplica._lock"}
+        if not watched <= set(observed["nodes"]):
+            raise AssertionError(f"the storm's locks were not watched: {observed['nodes']}")
+
+        # -- 4. a post-storm wave builds nothing ---------------------------
+        settle = [router.submit(records[i]) for i in range(THREAD_SETTLE_QUERIES)]
+        ok_settle, _, shed_settle = _check_results(
+            [f.result(timeout=THREAD_WAVE_S) for f in settle], expect, "post-storm wave")
+        if not ok_settle or compile_requests() != builds_after_warmup:
+            raise AssertionError(f"post-storm wave: {ok_settle} delivered, "
+                                 f"{compile_requests() - builds_after_warmup} builds")
+        lockwatch.dump_graph(os.path.join(tmp, "lock_order_graph.json"),
+                             static_edges=static_graph["edges"])
+        publish("thread_audit", classes=classes, findings=0,
+                observed_edges=len(observed["edges"]), inversions=0, cycles=0,
+                storm_wall_s=storm_s)
+        for obj in targets:
+            obj.close()
+        targets = []
+        sink.close()
+        rendered = summarize_events(read_events(events_path))
+        if "lock inversion" not in rendered or "thread audit" not in rendered:
+            raise AssertionError("obs summarize does not render the concurrency section")
+        n_routed = THREAD_ROUTER_THREADS * THREAD_ROUTER_QUERIES
+        fields.update({
+            "device": device, "thread_classes": classes,
+            "static_edges": len(static_graph["edges"]), "setup_s": setup_s,
+            "warmup": warm_a,
+            "builds_in_phase": builds_after_warmup - builds0,
+            "builds_after_warmup": compile_requests() - builds_after_warmup,
+            "storm": {
+                "router_threads": THREAD_ROUTER_THREADS, "router_queries": THREAD_ROUTER_QUERIES,
+                "direct_queries": THREAD_DIRECT_QUERIES, "pollers": THREAD_POLLERS,
+                "polls": polls[0], "hedge_ms": THREAD_HEDGE_MS, "window": THREAD_WINDOW,
+                "switch_interval_s": THREAD_SWITCH_INTERVAL_S,
+                "jitter_us": int(THREAD_JITTER_US), "faults": THREAD_FAULTS,
+                "wall_s": storm_s,
+                "queries_per_s": (n_routed + THREAD_DIRECT_QUERIES) / storm_s,
+                "router": {**_percentiles(np.asarray(lat["router"], np.float64)),
+                           "n": len(lat["router"])},
+                "direct": {**_percentiles(np.asarray(lat["direct"], np.float64)),
+                           "n": len(lat["direct"])},
+                "delivered_equal": delivered, "shed": shed,
+                "service_a_direct": {"served": d_served, "shed": d_shed},
+                "router_health": {k: health[k] for k in ("dispatched", "hedges", "hedge_wins",
+                                                         "failovers")},
+                "batches": batches, "launches": launches, "variant_launches": variants,
+                "launches_per_batch": {k: v / max(sum(batches), 1)
+                                       for k, v in launches.items()},
+            },
+            "observed": {"nodes": len(observed["nodes"]), "edges": len(observed["edges"]),
+                         "inversions": 0, "union_cycles": 0},
+            "post_storm": {"delivered_equal": ok_settle, "shed": shed_settle},
+            "summarize": next(ln for ln in rendered.splitlines()
+                              if ln.startswith("concurrency")),
+            "phase_s": time.perf_counter() - t0,
+        })
+    finally:
+        for obj in targets:
+            obj.close()
+        sink.close()
+        sys.setswitchinterval(old_interval)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset_plans()
+        lockwatch.reset()
+    shutil.rmtree(tmp, ignore_errors=True)
     shutil.rmtree(aot_dir, ignore_errors=True)
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -3323,11 +3729,35 @@ def shard_phase(torch, strings_cuda):
     return fields, launches
 
 
+def static_phase():
+    """numlint over the package and the thread audit over its registry
+    (both pure ``ast``, on the host): any finding raises."""
+    import splink_tpu_torch
+    from splink_tpu_torch.analysis import numlint, threadlint
+
+    fields = {}
+    pkg = os.path.dirname(os.path.abspath(splink_tpu_torch.__file__))
+    t0 = time.perf_counter()
+    report = numlint.numlint_paths([pkg])
+    fields["numlint_s"] = time.perf_counter() - t0
+    fields["numlint_files"] = report.files_checked
+    t0 = time.perf_counter()
+    findings, fields["thread_classes"], graph = threadlint.run_thread_audit()
+    fields["thread_s"] = time.perf_counter() - t0
+    fields["lock_graph_edges"] = len(graph["edges"])
+    findings = report.findings + findings
+    if findings or threadlint.graph_cycles(graph):
+        raise AssertionError("numlint / thread audit findings:\n"
+                             + "\n".join(f.format() for f in findings))
+    return fields
+
+
 def analysis_phase(torch, strings_cuda):
     """The three measured analysis layers on the card over every registered
     kernel, against the committed ``cuda`` tier, then the shard audit and
-    the lint (:func:`shard_phase`): any finding raises. Returns the
-    phase's fields and the shard audit's launches."""
+    the lint (:func:`shard_phase`), then numlint and the thread audit
+    (:func:`static_phase`): any finding raises. Returns the phase's fields
+    and the shard audit's launches."""
     from splink_tpu_torch.analysis import num_audit, perf_audit, trace_audit
 
     fields = {}
@@ -3373,6 +3803,7 @@ def analysis_phase(torch, strings_cuda):
     fields["syncs_recorded"] = {name: len(r.syncs) for name, r in records.items()}
     shard_fields, shard_launches = shard_phase(torch, strings_cuda)
     fields.update(shard_fields)
+    fields.update(static_phase())
     # the phases after this one need the card's memory, not the audits'
     # memoised inputs (the full-size cells hold ~0.1 GB)
     for spec in trace_audit.REGISTRY.values():
@@ -4143,6 +4574,18 @@ def main() -> int:
     for r in rows:
         if r["name"] in KERNELS:
             r["fleet_path_launches"] = fleet_launches[r["name"]]
+
+    # -- the lock-order storm: the fleet over the serve phase's index under
+    # -- watched locks, a seeded inversion first ------------------------------
+    thread, thread_launches = thread_phase(
+        torch, strings_cuda, native, tf, serve_ctx["idx_dir"],
+        serve_ctx["engine"].index.unique_id, serve_ctx["qdf"], serve_ctx["answers"], out_dir)
+    if not all(thread_launches[k] for k in KERNELS):
+        raise AssertionError(f"the storm launched {thread_launches}")
+    emit("thread", smi=smi, **thread)
+    for r in rows:
+        if r["name"] in KERNELS:
+            r["thread_path_launches"] = thread_launches[r["name"]]
 
     # -- observability: run telemetry at the main path's size, profile_dir,
     # -- the quality profile, the drift sketch and the drift monitor ----------

@@ -21,18 +21,28 @@ The port of splink_tpu/analysis, one finding model:
   * :mod:`.num_audit` — NaN/Inf corners, the float32-against-float64 ulp
     budget per kernel and tier (``num_baselines.json``), monotonicity and
     the pinned fold order.
+  * :mod:`.numlint` — the static half of numerics: raw logs on
+    possibly-zero operands, unshifted exps, unguarded divisions,
+    linear-space probability products, float equality in device code,
+    fold-order-breaking reductions, unclamped logit round trips and
+    out-of-f32-range literals, with ``# numlint: disable=RULE``.
+  * :mod:`.threadlint` — the concurrency audit of the registered serve and
+    obs classes (mixed-guard access, blocking calls and callback escapes
+    under locks, lock-order cycles, thread lifecycle), with
+    ``# threadlint: disable=RULE``; its dynamic half is :mod:`.lockwatch`,
+    the lock factory of the serve and obs modules, whose watched locks
+    (``SPLINK_TPU_LOCKWATCH=1``) record the observed acquisition order.
 
-Each audit runs on ``cuda`` unless a device is named (``device="cpu"``),
-and keys its baselines by tier (``cpu``, ``cuda``). :mod:`.lockwatch` is
-the lock factory of the serve and obs modules. Threadlint with the full
-lockwatch, and numlint, are not ported yet.
+Each measured audit runs on ``cuda`` unless a device is named
+(``device="cpu"``), and keys its baselines by tier (``cpu``, ``cuda``).
 
 CLI: ``python -m splink_tpu_torch.analysis [paths...] --audit --shard-audit
---num-audit [--perf-audit] [--device cpu] [--json]``.
+--num-audit --thread-audit [--perf-audit] [--device cpu] [--json]``.
 """
 
 from .findings import Finding, Report
 from .num_audit import num_plan, run_num_audit
+from .numlint import NL_RULES, numlint_paths, numlint_source
 from .perf_audit import current_tier, perf_plan, run_perf_audit, update_baselines
 from .rules import RULES
 from .shard_audit import (
@@ -41,6 +51,14 @@ from .shard_audit import (
     audit_shard_kernel,
     register_shard_kernel,
     run_shard_audit,
+)
+from .threadlint import (
+    THREAD_REGISTRY,
+    TL_RULES,
+    audit_source,
+    build_lock_graph,
+    graph_cycles,
+    run_thread_audit,
 )
 from .torchlint import ModuleLint, lint_paths, lint_source
 from .trace_audit import REGISTRY, KernelSpec, audit_kernel, register_kernel, run_audit
@@ -68,4 +86,13 @@ __all__ = [
     "register_shard_kernel",
     "audit_shard_kernel",
     "run_shard_audit",
+    "THREAD_REGISTRY",
+    "TL_RULES",
+    "audit_source",
+    "build_lock_graph",
+    "graph_cycles",
+    "run_thread_audit",
+    "NL_RULES",
+    "numlint_source",
+    "numlint_paths",
 ]

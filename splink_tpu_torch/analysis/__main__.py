@@ -1,13 +1,14 @@
 """CLI: ``python -m splink_tpu_torch.analysis [paths...] [--rules ...]
-[--audit] [--shard-audit] [--perf-audit] [--num-audit] [--device cpu]
-[--json]``.
+[--audit] [--shard-audit] [--perf-audit] [--num-audit] [--thread-audit]
+[--device cpu] [--json]``.
 
 Exit codes: 0 clean, 1 findings, 2 usage error. Paths are linted by
-:mod:`.torchlint` (pure ``ast``: no device). Every audit runs on ``cuda``
-unless ``--device`` names another device, and gates against the committed
-baselines of that device's tier. The thread audit belongs to a layer the
-port has not yet ported: asking for it exits 2 with a message naming the
-ROADMAP item that will.
+:mod:`.torchlint` and then by :mod:`.numlint` (pure ``ast``: no device);
+an explicit ``--rules`` list is split between them by the ``NL`` prefix.
+The thread audit (:mod:`.threadlint`, ``--thread-audit`` /
+``--thread-classes`` / ``--lock-graph``) is pure ``ast`` too. Every other
+audit runs on ``cuda`` unless ``--device`` names another device, and gates
+against the committed baselines of that device's tier.
 """
 
 from __future__ import annotations
@@ -17,10 +18,6 @@ import sys
 
 from .findings import Report
 
-# what asking for an unported layer says (ROADMAP.md, Queue 1)
-_THREAD_AUDIT_NOT_PORTED = ("--thread-audit is threadlint's, which ROADMAP Queue 1 "
-                            "item 12b-3 ports")
-
 
 def _names(value):
     return [k.strip() for k in value.split(",") if k.strip()] if value else None
@@ -29,8 +26,9 @@ def _names(value):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m splink_tpu_torch.analysis",
-        description="torchlint over paths, and the measured analysis layers: trace "
-                    "audit, shard audit, perf audit, num audit",
+        description="torchlint and numlint over paths, the thread audit, and the "
+                    "measured analysis layers: trace audit, shard audit, perf audit, "
+                    "num audit",
     )
     parser.add_argument("paths", nargs="*", help="files or directories to lint")
     parser.add_argument("--json", action="store_true", help="machine-readable JSON output")
@@ -61,19 +59,27 @@ def main(argv=None) -> int:
                         help="print the perf-audit plan without measuring anything")
     parser.add_argument("--device", default=None,
                         help="the device the audits run on (default: cuda)")
-    parser.add_argument("--thread-audit", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--thread-audit", action="store_true",
+                        help="run the concurrency audit over the registered serve and obs "
+                             "classes (pure AST, no device)")
+    parser.add_argument("--thread-classes",
+                        help="comma-separated class names to thread-audit (implies "
+                             "--thread-audit)")
+    parser.add_argument("--lock-graph", metavar="PATH",
+                        help="write the static lock-order graph as JSON (implies "
+                             "--thread-audit)")
     args = parser.parse_args(argv)
 
-    if args.thread_audit:
-        print(f"error: not ported to splink_tpu_torch yet: {_THREAD_AUDIT_NOT_PORTED}",
-              file=sys.stderr)
-        return 2
-
     if args.list_rules:
+        from .numlint import NL_RULES
         from .rules import RULES
+        from .threadlint import TL_RULES
 
         for spec in sorted(RULES.values(), key=lambda s: s.id):
             print(f"{spec.id}  {spec.title}\n       {spec.doc}")
+        for catalog in (TL_RULES, NL_RULES):
+            for rule_id, (title, doc) in sorted(catalog.items()):
+                print(f"{rule_id}  {title}\n       {doc}")
         return 0
 
     if args.list_perf_kernels:
@@ -89,18 +95,38 @@ def main(argv=None) -> int:
     perf = args.perf_audit or args.update_perf_baselines
     num = args.num_audit or args.update_num_baselines
     shard = args.shard_audit or args.update_baselines
-    if not (args.paths or args.audit or shard or perf or num):
+    thread = args.thread_audit or args.thread_classes or args.lock_graph
+    if not (args.paths or args.audit or shard or perf or num or thread):
         parser.print_usage(sys.stderr)
         print("error: give at least one of: a path to lint, --audit, --shard-audit, "
-              "--perf-audit, --num-audit", file=sys.stderr)
+              "--perf-audit, --num-audit, --thread-audit", file=sys.stderr)
         return 2
     kernels = _names(args.kernels)
     report = Report()
+    rules = _names(args.rules)
+    # NL rules are numlint's, every other id torchlint's; each engine rejects
+    # ids it does not know, so an explicit list is split by the prefix
+    nl_rules = tl_rules = None
+    if rules is not None:
+        nl_rules = [r for r in rules if r.upper().startswith("NL")]
+        tl_rules = [r for r in rules if not r.upper().startswith("NL")]
     try:
         if args.paths:
+            from .numlint import numlint_paths
             from .torchlint import lint_paths
 
-            report = lint_paths(args.paths, _names(args.rules))
+            report = lint_paths(args.paths, tl_rules)
+            # the same files, a second rule set: files_checked already counts them
+            report.extend(numlint_paths(args.paths, nl_rules).findings)
+        if thread:
+            from .threadlint import run_thread_audit, write_lock_graph
+
+            findings, report.thread_classes_audited, graph = run_thread_audit(
+                _names(args.thread_classes))
+            report.extend(findings)
+            if args.lock_graph:
+                write_lock_graph(args.lock_graph, graph)
+                print(f"wrote lock graph to {args.lock_graph}", file=sys.stderr)
     except (FileNotFoundError, KeyError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -129,7 +129,7 @@ def _jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold, dtype):
     mf = m.to(dtype)
     t = (mismatched // 2).to(dtype)  # Java integer division
     zero = torch.zeros((), dtype=dtype, device=dev)
-    jaro = torch.where(
+    jaro = torch.where(  # numlint: disable=NL003 (the lanes where m == 0 are discarded)
         m > 0, (mf / l1.to(dtype) + mf / l2.to(dtype) + (mf - t) / mf) / _three(dev, dtype), zero
     )
     run = torch.cumprod(((s1 == s2) & (idx[None, :] < la[:, None])).to(torch.int64), dim=1)

@@ -433,8 +433,9 @@ class QueryEngine:
         """The engine's device as the calling thread's current CUDA device
         (a service worker thread starts on device 0 whatever the engine's
         device is); a no-op on the CPU."""
+        # threadlint: disable=TL001 (write-once: set in __init__, a swap keeps it)
         if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
+            return torch.cuda.device(self.device)  # threadlint: disable=TL001 (write-once)
         return contextlib.nullcontext()
 
     # threadlint: holds=_swap_lock
@@ -461,7 +462,7 @@ class QueryEngine:
         return top_p, top_rows, top_valid, n_cand
 
     def _upload(self, arr: np.ndarray):
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(arr).to(self.device)  # threadlint: disable=TL001 (write-once)
 
     # -- query paths ----------------------------------------------------
 
@@ -580,6 +581,7 @@ class QueryEngine:
         profile.compile_s += max(compile_totals()[1] - c0, 0.0)
         t0 = time.perf_counter()
         if self.device.type == "cuda":
+            # threadlint: disable=TL002 (a profiled batch times the card inside its lock span)
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
         profile.execute_s += t1 - t0
@@ -740,9 +742,12 @@ class QueryEngine:
 
     @property
     def probe_count(self) -> int:
-        """Lock-free: ``_probes`` is an atomically assigned tuple and the
-        swap lock can be held for a whole batch."""
-        probes = self._probes
+        """Stat-only accessor, deliberately lock-free: ``_probes`` is an
+        atomically assigned tuple and the swap lock can be held for a whole
+        batch, so a health poll must not stall on it. A read racing a
+        capture or a swap returns the count of the old or of the new probe
+        set, both truthful answers."""
+        probes = self._probes  # threadlint: disable=TL001 (see docstring)
         return 0 if probes is None else len(probes[0])
 
     def swap_index(self, source, *, refresh_probes: bool = False) -> dict:
@@ -778,6 +783,7 @@ class QueryEngine:
             if isinstance(source, LinkageIndex):
                 new_index = source
             else:
+                # threadlint: disable=TL001 (write-once: a swap keeps the device)
                 new_index = load_index(source, device=self.device)
         except Exception as e:  # noqa: BLE001 - every load failure rolls back
             warn_degraded(
@@ -802,6 +808,10 @@ class QueryEngine:
                 sketch=self._sketch_override,
                 tf_adjust=self._tf_override,
             )
+            # threadlint: disable=TL001 (write-once: a swap keeps the engine's device)
+            if pending.device != self.device:
+                raise ValueError(f"candidate index is on {pending.device}, not on the "
+                                 "engine's device")
             warm = pending.warmup()
             plan.fire("swap_validate", generation=generation)
             if probes is not None:
@@ -821,7 +831,6 @@ class QueryEngine:
             ) from e
         with self._swap_lock:
             self.index = pending.index
-            self.device = pending.device
             self.tf_spec = pending.tf_spec
             # the drift sketch binds to the new index's profile and device
             self.sketch = pending.sketch

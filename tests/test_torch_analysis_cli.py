@@ -1,12 +1,11 @@
 """``python -m splink_tpu_torch.analysis``: its exit codes, in subprocesses.
 
 0 clean: the trace and num audits over the whole registry on the CPU (the
-acceptance gate, as the README runs it), a lint of a clean file, and the
-shard audit of one kernel. 1 findings: the num audit against a budget file
-doctored to zero for one kernel. 2 usage: no audit asked for, an unknown
-kernel, rule or shard kernel, and the layer the port has not ported yet
-(``--thread-audit``), whose message names the ROADMAP item that will port
-it.
+acceptance gate, as the README runs it), a lint of a clean file, the shard
+audit of one kernel, the thread audit of the registry, and an ``NL`` rule
+filter that leaves a file's numlint finding out. 1 findings: the num audit
+against a budget file doctored to zero for one kernel. 2 usage: no audit
+asked for, an unknown kernel, rule, shard kernel or thread class.
 """
 
 import json
@@ -59,7 +58,7 @@ def test_findings_exit_1(tmp_path):
 USAGE_CASES = [
     ([], "give at least one of"),
     (["--audit", "--device", "cpu", "--kernels", "no_such_kernel"], "no_such_kernel"),
-    (["--thread-audit"], "item 12b-3"),
+    (["--thread-classes", "NoSuchClass"], "NoSuchClass"),
     (["splink_tpu_torch", "--rules", "JL999"], "JL999"),
     (["--shard-audit", "--device", "cpu", "--kernels", "no_such_shard"], "no_such_shard"),
 ]
@@ -120,3 +119,22 @@ def test_list_perf_kernels():
     assert proc.returncode == 0, proc.stderr
     assert "perf_baselines.json" in proc.stdout
     assert "jaro_winkler" in proc.stdout and "cuda adds x16384" in proc.stdout
+
+
+def test_thread_audit_of_the_registry_exits_0():
+    proc = _run(["--thread-audit", "--json"])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    report = json.loads(proc.stdout)
+    assert report["clean"] and report["thread_classes_audited"] == 19
+
+
+def test_nl_rule_filter_picks_numlint_rules(tmp_path):
+    # one NL001 hazard: an NL-only list naming another rule runs neither
+    # torchlint nor NL001 (exit 0); naming NL001 finds it (exit 1)
+    path = tmp_path / "raw_log.py"
+    path.write_text("import torch\n\n\ndef f(m):\n    return torch.log(m)\n")
+    proc = _run([str(path), "--rules", "NL002", "--json"])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = _run([str(path), "--rules", "JL004,NL001", "--json"])
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert {f["rule"] for f in json.loads(proc.stdout)["findings"]} == {"NL001"}
