@@ -2840,6 +2840,7 @@ THREAD_QUEUE_DEPTH = 8_192  # the storm's submissions fit: answers, not queue_fu
 THREAD_WAVE_S = 60.0  # bound on each wait of the phase; the storm's threads get 3x, as the reference's
 THREAD_WARM_QUERIES = 64
 THREAD_SETTLE_QUERIES = 64
+THREAD_QUIET_S = 0.6  # a quiet window outlasts the replicas' 0.5 s longest retry backoff
 THREAD_SWITCH_INTERVAL_S = 1e-5  # ~500x more preemption points than the default 5 ms
 THREAD_JITTER_US = "50"
 THREAD_FAULTS = "wire_request@kind=net_drop:times=3"
@@ -2986,12 +2987,25 @@ def thread_phase(torch, strings_cuda, native, tf, idx_dir, uid, qdf, answers, ou
             raise AssertionError(f"{builds_after_warmup - builds0} kernel libraries built "
                                  "while the phase's engines warmed from the sidecar")
 
-        # a hedge's losing copy may still be in a batch: wait for both
-        # services' batch counts to settle before counting launches
+        # a hedge's losing copy may still be on the wire, in a retry's
+        # backoff, queued or mid-batch, and a service counts a batch only
+        # after its launches: launches match batches only across a quiet
+        # point, where both services hold no queued or in-flight entry and
+        # neither the wire nor the batch counts moved over a window longer
+        # than the replicas' longest retry backoff
+        def snapshot():
+            idle = True
+            for svc in (svc_a, svc_b):
+                with svc._lock:
+                    idle = idle and not svc._queue and not svc._inflight
+            return (idle, [svc.latency_summary()["batches"] for svc in (svc_a, svc_b)],
+                    [server.stats()["requests_total"] for server in (server_a, server_b)])
+
         def settled():
-            before = [svc.latency_summary()["batches"] for svc in (svc_a, svc_b)]
-            time.sleep(0.1)
-            return before == [svc.latency_summary()["batches"] for svc in (svc_a, svc_b)]
+            before = snapshot()
+            time.sleep(THREAD_QUIET_S)
+            after = snapshot()
+            return before[0] and after[0] and before[1:] == after[1:]
 
         # -- 3. the storm ------------------------------------------------
         _wait_for(settled, "the warm wave's batches to settle", THREAD_WAVE_S)
@@ -3098,6 +3112,9 @@ def thread_phase(torch, strings_cuda, native, tf, idx_dir, uid, qdf, answers, ou
         batches = [svc.latency_summary()["batches"] - n for svc, n in zip((svc_a, svc_b), b0)]
         launches = dict(strings_cuda.launches)
         variants = dict(strings_cuda.variant_launches)
+        if not settled() or batches != [svc.latency_summary()["batches"] - n
+                                        for svc, n in zip((svc_a, svc_b), b0)]:
+            raise AssertionError("a batch ran while the storm's launches were read")
         want_v = {"jaro_winkler/u8/w1": 2 * sum(batches), "levenshtein/u8/w1": sum(batches)}
         if device == "cuda" and variants != want_v:
             raise AssertionError(f"the storm launched {variants}, expected {want_v} "
