@@ -94,7 +94,8 @@ counted), restarts it, partitions B from its accept site (a
 ``wire_accept`` fault in B's settings) until it heals and reconnects
 (``wire_reconnect`` in the flight recorder), federates both replicas
 (merged counters and histograms equal to the union, both in the
-Prometheus text) and opens B's breaker for exactly one incident bundle.
+Prometheus text) and opens B's breaker for exactly one incident bundle,
+which must carry ``lock_graph.json``.
 The ``thread`` phase, right after ``fleet``, turns ``SPLINK_TPU_LOCKWATCH``
 on (every lock it builds is watched, with a 50 us jitter before each
 acquisition): two scratch locks taken in opposite orders must give one
@@ -103,16 +104,18 @@ carries the cycle; then two engine, service and wire server stacks over the
 serve phase's index on the card, warmed from the fleet's AOT sidecar (0
 builds), a RemoteReplica over each and a router hedging at 30 ms over both
 take a storm at a 1e-5 s switch interval with three injected connection
-drops: three router threads each submitting the same 1,024 queries (128 in
-flight at a time), one thread submitting 2,000 to service A, two pollers. It raises unless no
-future waits past 60 s nor thread past 180 s (the reference smoke's
-bounds), no exception escapes, every future resolves,
+drops: three router threads each submitting the same 512 queries (128 in
+flight at a time), one thread submitting 1,000 to service A, two pollers.
+It raises unless no future waits past 60 s nor thread past 180 s (the
+reference smoke's bounds), no exception escapes, every future resolves,
 service A counts every submission, ``hedge_wins <= hedges <=
 dispatched``, no inversion is observed, the observed graph's union with
 the static one is acyclic, every delivered answer ``==`` the serve
 phase's batch answer, the storm launches two dense Jaro-Winkler kernels
-and one Levenshtein kernel a service batch, and nothing is built through
-a post-storm wave; ``obs summarize`` must render the concurrency section.
+and one Levenshtein kernel a service batch, an incident bundle built after
+the storm carries a lock graph holding the fleet's watched locks with no
+inversion and no cycle, and nothing is built through a post-storm wave;
+``obs summarize`` must render the concurrency section.
 The ``obs`` phase, after ``fleet``: the main path's training and scoring
 again with ``telemetry_dir`` (parameters and scores bit-identical to the
 telemetry-off run, one ``em_iteration`` record per update equal to the
@@ -160,8 +163,8 @@ parameters in both, within 1e-12 of one process, a checkpoint from process
 0 only, each process's telemetry tagged with its rank; it prints each
 run's stage seconds, every ``all_sum_stats`` call's ms and each rank's
 peak device bytes. Every phase prints one JSON line; any failed check raises. The last lines are the
-kernel table, the card's name and power limit as nvidia-smi reports them,
-and {"ok": true, "device": {...}}.
+whole run's wall (``wall``), the kernel table, the card's name and power
+limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or splink_tpu. Exits non-zero without printing a
 result when no CUDA device is available.
@@ -2806,6 +2809,8 @@ def fleet_phase(torch, strings_cuda, native, tf, engine, idx_dir, qdf, answers, 
         raise AssertionError(f"incident bundles {reporter.bundles}")
     with open(os.path.join(reporter.bundles[0], "manifest.json")) as fh:
         manifest = json.load(fh)
+    if "lock_graph.json" not in manifest["files"]:
+        raise AssertionError(f"the incident bundle has no lock graph: {manifest['files']}")
     fields["federation"] = {
         "scrape_ms": scrape_ms, "hosts": len(merged["hosts"]),
         "counters": merged["counters"], "merged_equal_union": True,
@@ -2831,8 +2836,10 @@ def fleet_phase(torch, strings_cuda, native, tf, engine, idx_dir, qdf, answers, 
 # ----------------------------------------------------------------------
 
 THREAD_ROUTER_THREADS = 3
-THREAD_ROUTER_QUERIES = 1_024  # each router thread submits the same serve queries
-THREAD_DIRECT_QUERIES = 2_000  # one thread straight into service A
+# the storm's depth, halved from 1,024 and 2,000 to keep the whole run well
+# inside its time limit; its intensity (switch interval, jitter, drops) stays
+THREAD_ROUTER_QUERIES = 512  # each router thread submits the same serve queries
+THREAD_DIRECT_QUERIES = 1_000  # one thread straight into service A
 THREAD_POLLERS = 2
 THREAD_HEDGE_MS = 30.0
 THREAD_WINDOW = 128  # routed futures in flight per thread: each holds a hedge timer thread
@@ -2868,6 +2875,7 @@ def thread_phase(torch, strings_cuda, native, tf, idx_dir, uid, qdf, answers, ou
     from splink_tpu_torch.analysis.threadlint import graph_cycles, run_thread_audit
     from splink_tpu_torch.obs.cli import summarize_events
     from splink_tpu_torch.obs.events import EventSink, publish, read_events, register_ambient
+    from splink_tpu_torch.obs.fleet import FleetIncidentReporter
     from splink_tpu_torch.obs.flight import FlightRecorder
     from splink_tpu_torch.obs.metrics import compile_requests
     from splink_tpu_torch.resilience import faults
@@ -3156,6 +3164,21 @@ def thread_phase(torch, strings_cuda, native, tf, idx_dir, uid, qdf, answers, ou
                    "WireServer._lock", "RemoteReplica._lock"}
         if not watched <= set(observed["nodes"]):
             raise AssertionError(f"the storm's locks were not watched: {observed['nodes']}")
+        # an incident bundle carries the storm's observed lock graph
+        bundler = FleetIncidentReporter(local_flight=recorder,
+                                        bundle_dir=os.path.join(tmp, "bundles"),
+                                        interval_s=3600.0)
+        try:
+            bundle = bundler.build_now("manual")
+        finally:
+            bundler.close()
+        if bundle is None:
+            raise AssertionError("the post-storm incident bundle was not written")
+        with open(os.path.join(bundle, "lock_graph.json")) as fh:
+            bundle_graph = json.load(fh)
+        if (not watched <= set(bundle_graph["nodes"]) or bundle_graph["inversions"]
+                or bundle_graph["union_cycles"]):
+            raise AssertionError(f"the incident bundle's lock graph: {bundle_graph}")
 
         # -- 4. a post-storm wave builds nothing ---------------------------
         settle = [router.submit(records[i]) for i in range(THREAD_SETTLE_QUERIES)]
@@ -3205,6 +3228,8 @@ def thread_phase(torch, strings_cuda, native, tf, idx_dir, uid, qdf, answers, ou
             },
             "observed": {"nodes": len(observed["nodes"]), "edges": len(observed["edges"]),
                          "inversions": 0, "union_cycles": 0},
+            "bundle_graph": {"nodes": len(bundle_graph["nodes"]),
+                             "edges": len(bundle_graph["edges"])},
             "post_storm": {"delivered_equal": ok_settle, "shed": shed_settle},
             "summarize": next(ln for ln in rendered.splitlines()
                               if ln.startswith("concurrency")),
@@ -4112,6 +4137,7 @@ def approx_phase(torch, splink_tpu_torch, strings_cuda, native, tf, out_dir):
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4681,6 +4707,7 @@ def main() -> int:
     # -- every regime on the card at the subset's size -----------------------
     emit("regimes_parity", **regimes_parity(splink_tpu_torch, resilience, sub, out_dir))
 
+    emit("wall", seconds=time.perf_counter() - t_run, nvidia_smi=smi)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,9 @@ intuition report in ``intuition``; like splink_tpu, the package exports
 neither module's names.
 """
 
+__version__ = "0.1.0"
+
+from . import ops, parallel
 from ._device import resolve_device
 from .em import EMResult, run_em, score_pairs, score_pairs_with_intermediates
 from .gammas import register_comparison
@@ -36,6 +39,9 @@ from .settings import complete_settings_dict
 from .validate import validate_settings
 
 __all__ = [
+    "__version__",
+    "ops",
+    "parallel",
     "EMResult",
     "FSParams",
     "Params",

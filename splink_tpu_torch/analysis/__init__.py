@@ -43,14 +43,15 @@ CLI: ``python -m splink_tpu_torch.analysis [paths...] --audit --shard-audit
 from .findings import Finding, Report
 from .num_audit import num_plan, run_num_audit
 from .numlint import NL_RULES, numlint_paths, numlint_source
-from .perf_audit import current_tier, perf_plan, run_perf_audit, update_baselines
-from .rules import RULES
+from .perf_audit import current_tier, perf_plan, run_perf_audit
+from .rules import RULES, rule
 from .shard_audit import (
     SHARD_REGISTRY,
     ShardKernelSpec,
     audit_shard_kernel,
     register_shard_kernel,
     run_shard_audit,
+    update_baselines,
 )
 from .threadlint import (
     THREAD_REGISTRY,
@@ -78,6 +79,7 @@ __all__ = [
     "num_plan",
     "run_num_audit",
     "RULES",
+    "rule",
     "ModuleLint",
     "lint_source",
     "lint_paths",

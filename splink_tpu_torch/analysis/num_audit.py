@@ -62,6 +62,12 @@ REFRESH = "python -m splink_tpu_torch.analysis --update-num-baselines --device <
 # Fellegi-Sunter surface rather than one registered kernel.
 MODEL_CHECKS = ("match_probability", "fold_logit")
 
+# Registered kernels excluded from a specific check, with the reason.
+# Empty, as in the reference: the table is where a kernel that cannot run
+# at f64 would document itself instead of silently dropping out of the
+# plan.
+NUM_EXCLUDED: dict[str, str] = {}
+
 
 def current_tier(device=None) -> str:
     from .perf_audit import current_tier as tier

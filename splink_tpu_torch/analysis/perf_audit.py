@@ -81,6 +81,10 @@ COMPILE_ATOL_MS = 500.0
 MEM_RTOL = 0.25  # deterministic bytes
 DEVICE_MEM_RTOL = 0.5  # measured peak device delta (runtime, loose)
 
+#: metrics measured per (tier, kernel, shape). ``*_ms`` are walls
+#: (one-sided + noise guard); ``*_bytes`` are the deterministic bytes;
+#: ``peak_device_bytes`` is the measured peak delta (null on the CPU tier)
+TIME_KEYS = ("compile_ms", "execute_ms")
 MEM_KEYS = ("argument_bytes", "output_bytes", "temp_bytes")
 
 #: the host probe: PROBE_OPS in-place adds on a 16-element tensor, then one

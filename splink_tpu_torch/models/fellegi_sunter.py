@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import resolve_device
+
 
 class FSParams(NamedTuple):
     """Fellegi-Sunter parameters as tensors on one device."""
@@ -39,6 +41,22 @@ class SufficientStats(NamedTuple):
 
     def __add__(self, other: "SufficientStats") -> "SufficientStats":
         return SufficientStats(*(a + b for a, b in zip(self, other)))
+
+    @staticmethod
+    def zeros(n_cols: int, max_levels: int, dtype=torch.float32,
+              device=None) -> "SufficientStats":
+        """All-zero statistics on ``device`` (``None``: the card, as at
+        every entry point)."""
+        dev = resolve_device(device)
+        z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+        return SufficientStats(
+            m_num=z(n_cols, max_levels),
+            u_num=z(n_cols, max_levels),
+            m_den=z(n_cols),
+            u_den=z(n_cols),
+            sum_p=z(),
+            n_rows=z(),
+        )
 
 
 def _safe_log(x):

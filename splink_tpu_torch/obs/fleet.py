@@ -27,14 +27,14 @@ incidents: a replica's breaker opening, a burst of link-loss sheds (the
 partition signature), or a hedge storm (every primary slow at once —
 reported by the router via :meth:`note_hedge`). On a trigger it writes
 ONE bundle directory — the router's own flight ring, every reachable
-remote's ring (pulled over the wire's ``flight_pull`` envelope) and the
-stitched request traces of the triggering window — so the post-mortem for
-"the fleet fell over at 03:12" is one directory instead of an N-host
-log-ssh crawl. (The reference's bundles also carry the lock-order graph of
-its watched locks; the port's locks are plain, so its bundles have none.) Bundles are
-rate-limited (one per ``fleet_incident_interval_s``, a storm produces one
-artifact) and built on a background thread: the trigger path publishes
-and returns.
+remote's ring (pulled over the wire's ``flight_pull`` envelope), the
+stitched request traces of the triggering window, and the lock-order
+graph (``lock_graph.json``: lockwatch's observed graph, empty unless
+``SPLINK_TPU_LOCKWATCH`` watches the locks) — so the post-mortem for "the
+fleet fell over at 03:12" is one directory instead of an N-host log-ssh
+crawl. Bundles are rate-limited (one per ``fleet_incident_interval_s``,
+a storm produces one artifact) and built on a background thread: the
+trigger path publishes and returns.
 
 Cross-host **trace stitching** itself lives in the wire layer
 (:mod:`..serve.wire` piggybacks the server's span tree on the result
@@ -538,6 +538,11 @@ class FleetIncidentReporter:
                     [dict(t, type="request_trace") for t in traces],
                 )
                 manifest["files"].append("stitched_traces.jsonl")
+            try:
+                lockwatch.dump_graph(os.path.join(path, "lock_graph.json"))
+                manifest["files"].append("lock_graph.json")
+            except Exception as e:  # noqa: BLE001 - the graph is a nice-to-have
+                logger.warning("fleet: lock graph dump failed: %s", e)
             self._write_json(
                 os.path.join(path, "manifest.json"), manifest
             )

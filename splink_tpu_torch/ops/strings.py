@@ -223,3 +223,13 @@ def levenshtein(s1, s2, l1, l2):
 def levenshtein_ratio(s1, s2, l1, l2):
     """levenshtein / mean length, batched, with kernel dispatch."""
     return ratio_from_distance(levenshtein(s1, s2, l1, l2), l1, l2)
+
+
+def jaro_winkler_batch(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7):
+    return jaro_winkler(s1, s2, l1, l2, prefix_scale, boost_threshold)
+
+
+def exact_equal(s1, s2, l1, l2):
+    """Batched exact equality of padded strings, (B,) bool (padding bytes
+    are always 0)."""
+    return (s1 == s2).all(dim=1) & (l1 == l2)

@@ -95,6 +95,12 @@ class VirtualPlan:
     # device copies of the plan's arrays, uploaded once per device
     _device_arrays: dict = field(default_factory=dict, repr=False)
 
+    def rule_offsets(self) -> np.ndarray:
+        """(R+1,) int64 global position offset of each rule's segment."""
+        return np.concatenate(
+            [[0], np.cumsum([rp.total for rp in self.rules])]
+        ).astype(np.int64)
+
     def on_device(self, device: torch.device) -> dict:
         """The plan's arrays on ``device`` (uploaded at first use): key
         codes, uid codes, residual operands and each rule's unit tables."""

@@ -31,11 +31,6 @@ from ..models.fellegi_sunter import (
 from .mesh import reduce_shards, shard_pairs
 
 
-def _zero_stats(C: int, L: int, dtype, device) -> SufficientStats:
-    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
-    return SufficientStats(z(C, L), z(C, L), z(C), z(C), z(), z())
-
-
 def _to_device(a, device, dtype=None):
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype)
@@ -144,7 +139,7 @@ def run_em_streamed(
 
     def one_pass(it, params):
         """One full pass over the stream: (accumulated stats, ll parts)."""
-        acc = _zero_stats(C, L, dtype, device)
+        acc = SufficientStats.zeros(C, L, dtype, device)
         # per-batch log likelihoods stay on the device and sum at the end
         # of the pass (one host read per pass)
         ll_parts = []

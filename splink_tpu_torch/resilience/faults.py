@@ -75,14 +75,16 @@ _KINDS = (
 
 DEFAULT_SLOW_DELAY_MS = 250
 
-SITES = (
-    "resident_em", "segment", "batch_fetch", "em_iteration", "emit_segment",
-    "build_chunk", "serve_worker", "serve_batch", "swap_load", "swap_validate",
-    "wire_accept", "wire_request", "wire_response",
-)
-
-# The wire tier's injection points (module docstring).
+# The serve-path, offline write-path and wire-tier injection points
+# (module docstring).
+SERVE_SITES = ("serve_worker", "serve_batch", "swap_load", "swap_validate")
+BUILD_SITES = ("emit_segment", "build_chunk")
 WIRE_SITES = ("wire_accept", "wire_request", "wire_response")
+
+SITES = (
+    ("resident_em", "segment", "batch_fetch", "em_iteration")
+    + BUILD_SITES + SERVE_SITES + WIRE_SITES
+)
 
 
 class InjectedFault(RuntimeError):

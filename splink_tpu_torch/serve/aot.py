@@ -165,6 +165,12 @@ class AotStore:
         self._entries = dict(menu.get("libraries") or {})
         return True
 
+    @property
+    def names(self) -> list[str]:
+        """The menu's library names, sorted (empty before :meth:`validate`
+        accepts the store)."""
+        return sorted(self._entries or {})
+
     def restore(self, name: str, dest: str) -> bool:
         """Write library ``name``'s blob to ``dest`` once its sha256 matches
         the committed menu; True when it was written. False when the menu

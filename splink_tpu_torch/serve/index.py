@@ -258,6 +258,10 @@ class ServeRule:
     row_bucket: np.ndarray  # (n_rows,) int32 bucket of each row; -1 null key
     bucket_of: dict = field(default_factory=dict)  # canonical key -> bucket
 
+    @property
+    def n_buckets(self) -> int:
+        return len(self.starts)
+
     def query_bucket(self, key_tokens: list) -> int:
         """Bucket index for one query's canonical key tokens; -1 when any
         key is null or the combination is absent from the reference."""
@@ -311,6 +315,7 @@ class QueryBatch:
     packed: np.ndarray  # (n, n_lanes) uint32, same layout as the index
     qbuckets: np.ndarray  # (n_gather, n) int32; -1 = no candidates
     n: int
+    unique_id: np.ndarray  # (n,) query ids (positional when absent)
     approx_used: np.ndarray | None = None  # (n,) bool
     # (n_tf_fold, n) int32 query token ids for the TF fold columns (the
     # reference-vocabulary ids _pin_string_column resolved: an unseen query
@@ -606,6 +611,7 @@ class LinkageIndex:
             packed=packed_q,
             qbuckets=qbuckets,
             n=len(df),
+            unique_id=np.asarray(df[uid_col].to_numpy()),
             approx_used=approx_used,
             tf_tids=tf_tids,
         )

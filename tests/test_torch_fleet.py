@@ -7,8 +7,9 @@ loopback sockets with duck-typed services: the payload round trip,
 parity and its shed taxonomy, stitched traces, the merges (bit-exact
 union), the aggregator over the wire and incident bundles. Left out: its
 ``summarize`` and ``attribute`` rendering tests and the fleet dashboard
-lines, which wait for the port of ``obs/cli.py``. The port's locks are not
-watched, so its bundles carry no lock graph.
+lines, which wait for the port of ``obs/cli.py``. Every bundle carries the
+lock graph: empty with the locks unwatched, lockwatch's observed graph with
+them watched.
 
 Against the reference: ``merge_histograms``, ``merge_exports``,
 ``merge_drift``, ``merge_fleet_stats`` and ``chrome_trace_from_events`` give
@@ -745,7 +746,7 @@ def test_incident_bundle_contents(tmp_path, capture):
         assert "manifest.json" in files
         assert "flight_local.jsonl" in files
         assert "stitched_traces.jsonl" in files
-        assert "lock_graph.json" not in files  # the port's locks are not watched
+        assert "lock_graph.json" in files
         remote_files = [f for f in files if f.startswith("flight_remote")]
         assert len(remote_files) == 1  # the pulled host-a ring
         with open(os.path.join(path, remote_files[0])) as fh:
@@ -767,6 +768,37 @@ def test_incident_bundle_contents(tmp_path, capture):
         server.close()
         local_fr.close()
         remote_fr.close()
+
+
+def test_incident_bundle_lock_graph_is_the_observed_graph(tmp_path, monkeypatch):
+    from splink_tpu_torch.analysis import lockwatch
+
+    monkeypatch.setenv(lockwatch.ENV_VAR, "1")
+    monkeypatch.delenv(lockwatch.JITTER_ENV_VAR, raising=False)
+    lockwatch.reset()
+    reporter = FleetIncidentReporter(bundle_dir=str(tmp_path))
+    try:
+        outer = lockwatch.new_lock("Outer.lock")
+        inner = lockwatch.new_rlock("Inner.lock")
+        with outer:
+            with inner:
+                pass
+        path = reporter.build_now("manual")
+        observed = lockwatch.observed_graph()
+        with open(os.path.join(path, "lock_graph.json")) as fh:
+            graph = json.load(fh)
+        assert set(graph) == {"nodes", "edges", "inversions", "union_cycles"}
+        assert graph["nodes"] == observed["nodes"]
+        assert graph["edges"] == observed["edges"]
+        assert {"Outer.lock", "Inner.lock"} <= set(graph["nodes"])
+        assert any(e["from"] == "Outer.lock" and e["to"] == "Inner.lock"
+                   for e in graph["edges"])
+        assert graph["inversions"] == [] and graph["union_cycles"] == []
+        with open(os.path.join(path, "manifest.json")) as fh:
+            assert "lock_graph.json" in json.load(fh)["files"]
+    finally:
+        reporter.close()
+        lockwatch.reset()
 
 
 def test_incident_bundle_marks_unreachable_remote(tmp_path):
