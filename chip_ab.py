@@ -10,6 +10,9 @@ other in this process, in the order given, on the same inputs:
   * the dense Jaro-Winkler kernel on 2,000,000 seeded pairs of width 24
     (uint8): device ms with a cold L2 and call ms, as chip_smoke.py times
     them, and its output, which must be equal in every tree;
+  * the same on 100,000 seeded pairs of width 96 and of width 128 (uint8),
+    each tree's own form for those widths (the lane-group form where a tree
+    has one, the generic form before it);
   * the whole two-phase Jaro-Winkler step of one column (bound, survivors,
     kernel, levels) on the first pair batch of chip_smoke.py's main path
     (1,000,000 seeded rows): median host ms from the call to a
@@ -35,6 +38,7 @@ import time
 
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+WIDE_WIDTHS = (96, 128)  # Jaro-Winkler's columns past width 64
 
 
 def load_tree(tree: str):
@@ -86,11 +90,14 @@ def main(trees: list[str]) -> int:
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         args = cs.random_pairs(torch, cs.KERNEL_CHECK_PAIRS, 24, False, gen)
         jw = strings_cuda.jaro_winkler_cuda(*args)
+        wide = {w: cs.random_pairs(torch, cs.WIDE_CHECK_PAIRS, w, False, gen) for w in WIDE_WIDTHS}
+        wide_jw = {w: strings_cuda.jaro_winkler_cuda(*a) for w, a in wide.items()}
         pc, aux = cs.first_batch(torch, gammas, linker, col["col_name"])
         step_ms, lvl = cs.two_phase_step_ms(torch, gammas, pc, aux, thresholds)
         if not first:
-            first.update(jw=jw, lvl=lvl)
-        elif not (torch.equal(jw, first["jw"]) and torch.equal(lvl, first["lvl"])):
+            first.update(jw=jw, lvl=lvl, wide=wide_jw)
+        elif not (torch.equal(jw, first["jw"]) and torch.equal(lvl, first["lvl"])
+                  and all(torch.equal(wide_jw[w], first["wide"][w]) for w in WIDE_WIDTHS)):
             raise AssertionError(f"{tree}: Jaro-Winkler output or levels differ from {trees[0]}")
         mod = sys.modules["splink_tpu_torch"]
         torch.cuda.synchronize()
@@ -111,11 +118,16 @@ def main(trees: list[str]) -> int:
                 "ms": cs.cuda_ms(torch, lambda: strings_cuda.jaro_winkler_cuda(*args)),
                 "call_ms": cs.cuda_ms(torch, lambda: strings_cuda.jaro_winkler_cuda(*args),
                                       device_only=False)},
+            **{f"jw_dense_100k_w{w}": {
+                "variant": strings_cuda.kernel_variant("jaro_winkler", w, torch.uint8)[1],
+                "ms": cs.cuda_ms(torch, lambda a=a: strings_cuda.jaro_winkler_cuda(*a)),
+                "call_ms": cs.cuda_ms(torch, lambda a=a: strings_cuda.jaro_winkler_cuda(*a),
+                                      device_only=False)} for w, a in wide.items()},
             "two_phase_step": {"column": col["col_name"], "pairs": int(pc.len_l.shape[0]),
                                "host_ms_to_synchronize": step_ms},
             "kernel_launches": dict(strings_cuda.variant_launches),
         }), flush=True)
-        del pc, aux, args, jw, trained
+        del pc, aux, args, jw, trained, wide, wide_jw
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0),
                       "trees": trees}), flush=True)
     return 0

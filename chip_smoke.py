@@ -15,9 +15,15 @@ be one masked launch per column and batch), checks the output, checks the
 masked kernel on the main path's first batch and its real survivor mask,
 times each kernel and the whole two-phase step of one batch, runs a
 20,000-row subset on the card and on the CPU for parity, runs columns of
-max_string_length 64 and 96 on the card and on the CPU (the multi-word and
-generic kernel variants, the W = 2 Jaro-Winkler form timed against the
-generic one), and round-trips the model through JSON. It builds the native
+max_string_length 64 and 96 on the card and on the CPU (the multi-word
+kernel variants and Jaro-Winkler's lane-group form), then the same
+columns at full size (the ``wide_job``: 1,000,000 rows, ~16.1M pairs,
+training only, two-phase and dense: equal gamma matrices and parameters,
+the lane-group form launched masked and then dense, the generic form
+never), times Jaro-Winkler's W = 2, lane-group and generic forms against
+each other at widths 64 to 128 (the lane-group form must beat the generic
+one at 96 and 128) and Levenshtein's generic form at width 264, and
+round-trips the model through JSON. It builds the native
 host library with g++ and holds each of its functions (the encoder, the
 self and cross joins) to its numpy plain version at the main path's shapes,
 array for array, and requires the main path's encode and blocking to have
@@ -188,6 +194,9 @@ KERNEL_CHECK_PAIRS = 2_000_000
 WIDE_CHECK_PAIRS = 100_000  # past width 32, so that the plain versions fit
 CHECK_WIDTHS = (8, 24, 32, 40, 64, 128, 256, 264)
 MASK_DENSITIES = (0.0, 0.002, 0.5, 1.0)  # masked-launch checks at 2M x 24
+WIDE_JOB_ROWS = 1_000_000  # the wide columns at full size, training only
+EXTREME_WIDTHS = (1024, 1056)  # Jaro-Winkler's widest lane group, its generic form
+EXTREME_CHECK_PAIRS = 4_096  # the plain versions grow with the width squared
 TIMING_RUNS = 15
 STEP_RUNS = 51  # host-clock readings vary more than device times
 HOST_RUNS = 5  # the native functions and their plain versions, host clock
@@ -413,14 +422,15 @@ def edge_pairs(torch):
     return enc(a), enc(b), lens(a), lens(b)
 
 
-def check_kernels(torch, strings, strings_cuda, args, gen):
+def check_kernels(torch, strings, strings_cuda, args, gen, densities=(0.5,)):
     """Kernel vs plain version on the same card tensors, Jaro-Winkler also
-    masked to a random half of the pairs; raises if they differ
-    (Jaro-Winkler: torch.equal on float32; Levenshtein: exact)."""
-    mask = torch.rand(args[0].shape[0], generator=gen, device="cuda") < 0.5
+    masked to a random share of the pairs at each of ``densities``; raises
+    if they differ (Jaro-Winkler: torch.equal on float32; Levenshtein:
+    exact)."""
+    masks = [torch.rand(args[0].shape[0], generator=gen, device="cuda") < d for d in densities]
     jw_k = strings_cuda.jaro_winkler_cuda(*args)
     jw_p = strings.jaro_winkler_plain(*args)
-    jw_mk = strings_cuda.jaro_winkler_cuda(*args, mask=mask)
+    jw_mk = [strings_cuda.jaro_winkler_cuda(*args, mask=mask) for mask in masks]
     lev_k = strings_cuda.levenshtein_cuda(*args)
     lev_p = strings.levenshtein_plain(*args)
     torch.cuda.synchronize()
@@ -428,7 +438,8 @@ def check_kernels(torch, strings, strings_cuda, args, gen):
     if not torch.equal(jw_k, jw_p):
         bad = int((jw_k != jw_p).sum())
         raise AssertionError(f"jaro_winkler kernel differs from plain on {bad} pairs at {shape}")
-    check_masked(torch, jw_mk, torch.where(mask, jw_p, 0.0), f"{shape}, half masked")
+    for d, mask, got in zip(densities, masks, jw_mk):
+        check_masked(torch, got, torch.where(mask, jw_p, 0.0), f"{shape}, density {d}")
     if not torch.equal(lev_k, lev_p):
         bad = int((lev_k != lev_p).sum())
         raise AssertionError(f"levenshtein kernel differs from plain on {bad} pairs at {shape}")
@@ -536,12 +547,14 @@ def lev_ops_one_word(torch, s1, l1, l2):
 
 
 def res_usage(cuda_tool, libs):
-    """Per kernel variant ("<kernel>/<u8|u32>/w<W>", w0 the generic form)
-    the registers and stack frame bytes, read from the built libraries with
-    ``cuobjdump -res-usage``."""
+    """Per kernel variant ("<kernel>/<u8|u32>/w<W>", w0 the generic form;
+    "<kernel>/<u8|u32>/group" the lane-group form, one compiled function for
+    every G) the registers and stack frame bytes, read from the built
+    libraries with ``cuobjdump -res-usage``."""
     names = {"levenshtein_kernel": "levenshtein", "levenshtein_generic_kernel": "levenshtein",
-             "jaro_winkler_kernel": "jaro_winkler", "jaro_winkler_wide_kernel": "jaro_winkler"}
-    pat = re.compile(r"\d(levenshtein_generic_kernel|levenshtein_kernel|"
+             "jaro_winkler_kernel": "jaro_winkler", "jaro_winkler_wide_kernel": "jaro_winkler",
+             "jaro_winkler_group_kernel": "jaro_winkler"}
+    pat = re.compile(r"\d(levenshtein_generic_kernel|levenshtein_kernel|jaro_winkler_group_kernel|"
                      r"jaro_winkler_wide_kernel|jaro_winkler_kernel)I([hj])(?:Li(\d+)E)?")
     out, current = {}, None
     for path in libs.values():
@@ -553,19 +566,20 @@ def res_usage(cuda_tool, libs):
                 current = None
                 if m:
                     w = m.group(3) or ("1" if m.group(1) == "jaro_winkler_kernel" else "0")
-                    current = f"{names[m.group(1)]}/{'u8' if m.group(2) == 'h' else 'u32'}/w{w}"
+                    form = "group" if m.group(1) == "jaro_winkler_group_kernel" else f"w{w}"
+                    current = f"{names[m.group(1)]}/{'u8' if m.group(2) == 'h' else 'u32'}/{form}"
             regs = re.search(r"REG:(\d+) STACK:(\d+)", line)
             if current and regs:
                 out[current] = {"registers": int(regs.group(1)), "stack_bytes": int(regs.group(2))}
     return out
 
 
-def measure(torch, name, plain_fn, kernel_fn, args, ops_fn):
+def measure(torch, name, plain_fn, kernel_fn, args, ops_fn, plain_runs=TIMING_RUNS):
     """Kernel vs plain version on ``args`` (s1, s2, l1, l2[, mask]):
-    equality, median times, and the bound: the larger of the bytes moved
-    (inputs once, output once; with a mask, the mask, the output and only
-    the kept pairs' rows and lengths) over the HBM rate and the integer
-    operations over the INT32 rate."""
+    equality, median times (the plain version's of ``plain_runs``), and the
+    bound: the larger of the bytes moved (inputs once, output once; with a
+    mask, the mask, the output and only the kept pairs' rows and lengths)
+    over the HBM rate and the integer operations over the INT32 rate."""
     s1, s2, l1, l2 = args[:4]
     mask = args[4] if len(args) > 4 else None
     kw = {} if mask is None else {"mask": mask}
@@ -580,13 +594,16 @@ def measure(torch, name, plain_fn, kernel_fn, args, ops_fn):
     nbytes = kept * pair_bytes + 4 * n + (0 if mask is None else n)
     ops = ops_fn(torch, s1, l1, l2, **kw)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    ms = cuda_ms(torch, lambda: kernel_fn(*args[:4], **kw))
     return {
         "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: kernel_fn(*args[:4], **kw)),
+        "ms": ms,
         "call_ms": cuda_ms(torch, lambda: kernel_fn(*args[:4], **kw), device_only=False),
-        "plain_ms": cuda_ms(torch, lambda: plain_fn(*args[:4], **kw), device_only=False),
+        "plain_ms": cuda_ms(torch, lambda: plain_fn(*args[:4], **kw), runs=plain_runs,
+                            warmup=min(3, plain_runs), device_only=False),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "share_of_bound": max(t_bytes, t_ops) / ms,
         "shape": [n, s1.shape[1]],
         "dtype": str(s1.dtype).replace("torch.", ""),
         "pairs_computed": kept,
@@ -682,6 +699,147 @@ def cuda_vs_cpu(splink_tpu_torch, strings_cuda, settings, df):
 # ----------------------------------------------------------------------
 # The native host library and the term-frequency path
 # ----------------------------------------------------------------------
+
+
+def wide_job(torch, splink_tpu_torch, strings_cuda, native, tf, df, device="cuda"):
+    """The wide columns at full size: WIDE_SETTINGS on ``df``, training only
+    (``estimate_parameters``: encode, blocking, gammas, EM), first with the
+    defaults (two-phase Jaro-Winkler, masked launches), then with
+    ``"two_phase_jw": "off"`` (the dense body of the pattern passes, serving
+    and the drift sketch). Raises unless each run went through the device
+    tier and launched both kernels, ``notes`` (width 96) took the lane-group
+    form masked in the first run and dense in the second, the generic form
+    never ran, and both runs give equal gamma matrices and parameters (the
+    setting's contract: two-phase is bit-identical to "off"). Returns the
+    phase's fields and the first run's captured launches. On the CPU
+    (``device="cpu"``, a rehearsal) the gates on launches are skipped."""
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    runs, fields = {}, {}
+    for run, over in (("two_phase", {}), ("dense", {"two_phase_jw": "off"})):
+        zero_counts(strings_cuda, native, tf)
+        strings_cuda.capture = {} if run == "two_phase" else None
+        sync()
+        t0 = time.perf_counter()
+        lk = splink_tpu_torch.Splink({**json.loads(json.dumps(WIDE_SETTINGS)), **over}, df=df,
+                                     device=device)
+        lk.estimate_parameters()
+        sync()
+        wall = time.perf_counter() - t0
+        if on_card:
+            check_path_counts(f"the wide job ({run})", strings_cuda, native)
+        variants = dict(strings_cuda.variant_launches)
+        if run == "two_phase":
+            captured, strings_cuda.capture = strings_cuda.capture, None
+        runs[run] = lk
+        fields[run] = {"wall_s": wall, "stage_s": dict(lk.stage_seconds),
+                       "pairs": int(lk._pairs.n_pairs), "variant_launches": variants,
+                       "em_updates": len(lk.params.param_history),
+                       "lambda": float(lk.params.params["λ"])}
+        if any("/w0" in k and k.startswith("jaro_winkler/") for k in variants):
+            raise AssertionError(f"the wide job ({run}) launched the generic form: {variants}")
+    group = strings_cuda.variant_name("jaro_winkler", "u8", strings_cuda.kernel_variant(
+        "jaro_winkler", runs["dense"]._table.strings["notes"].width, torch.uint8)[1])
+    dense = fields["dense"]["variant_launches"]
+    if on_card and not fields["two_phase"]["variant_launches"].get(group + "/masked"):
+        raise AssertionError(f"the two-phase wide job launched no {group}/masked")
+    if on_card and (not dense.get(group) or any(k.endswith("/masked") for k in dense)):
+        raise AssertionError(f"the dense wide job launched {dense}, expected {group} dense")
+    a, b = runs["two_phase"], runs["dense"]
+    if not (np.array_equal(a._pairs.idx_l, b._pairs.idx_l)
+            and np.array_equal(a._pairs.idx_r, b._pairs.idx_r)):
+        raise AssertionError("the wide job's two runs blocked different pairs")
+    if not np.array_equal(a._G, b._G):
+        raise AssertionError("the wide job's gamma matrices differ between two-phase and dense")
+    for x, y in zip(a.params.to_arrays()[:3], b.params.to_arrays()[:3]):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError("the wide job's parameters differ between two-phase and dense")
+    fields.update(rows=len(df), group_variant=group,
+                  widths={c: a._table.strings[c].width for c in ("address", "notes", "employer")},
+                  gamma_equal=True, params_equal=True)
+    return fields, captured
+
+
+def wide_kernel_rows(torch, strings_cuda, row, gen, parity_variants, job, captured):
+    """The kernel table's rows of the forms that run past width 32: the
+    wide job's first ``notes`` batch as captured (masked, then dense on the
+    same pairs), Jaro-Winkler's W = 2, lane-group and generic forms on
+    uniform pairs of width 64, 96 and 128, the lane-group form at 128 for
+    32-bit codepoints too, and Levenshtein's generic form at width 264.
+    Raises unless the W = 2 form beats the generic one at width 64 and the
+    lane-group form beats it at 96 and 128 (uint8). Each row's launches are
+    the wide job's two runs and the wide parity run's."""
+    two, dense = job["two_phase"]["variant_launches"], job["dense"]["variant_launches"]
+
+    def path_launches(variant):  # dense and masked
+        return {path: sum(v for k, v in counts.items() if k in (variant, variant + "/masked"))
+                for path, counts in (("wide_job_two_phase", two), ("wide_job_dense", dense),
+                                     ("wide_parity", parity_variants))}
+
+    def forced(kernel, words):
+        def fn(s1, s2, l1, l2, mask=None):
+            dtype = torch.int32 if kernel == "levenshtein" else torch.float32
+            out = torch.empty(s1.shape[0], dtype=dtype, device=s1.device)
+            scalars = (0.1, 0.7) if kernel == "jaro_winkler" else ()
+            return strings_cuda._launch(kernel, out, s1, s2, l1, l2, *scalars, mask=mask,
+                                        words=words)
+        return fn
+
+    # the plain versions take 0.1-1 s a call at these widths: median of 3
+    def timed(name, kernel, args, form, words=None, plain_runs=3, **extra):
+        kind = "u8" if args[0].dtype == torch.uint8 else "u32"
+        chosen = strings_cuda.kernel_variant(kernel, args[0].shape[1], args[0].dtype)[1]
+        words = chosen if words is None else words
+        variant = strings_cuda.variant_name(kernel, kind, words)
+        counts = path_launches(variant)
+        res = f"{kernel}/{kind}/" + ("group" if words < 0 else f"w{words}")
+        return row(name, kernel, args, [res], sum(counts.values()),
+                   fn=None if words == chosen else forced(kernel, words), plain_runs=plain_runs,
+                   form=form, variant=variant, path_launches=counts, **extra)
+
+    group = job["group_variant"]
+    notes = captured[group + "/masked"]
+    out = [
+        timed("jaro_winkler/wide_job_notes_masked", "jaro_winkler", notes,
+              f"{group.split('/')[2]}, masked: the wide job's first notes batch (width 96) and "
+              "its survivor mask"),
+        timed("jaro_winkler/wide_job_notes_dense", "jaro_winkler", notes[:4],
+              f"{group.split('/')[2]}, dense: the same batch's pairs"),
+    ]
+    w64 = random_pairs(torch, WIDE_CHECK_PAIRS, 64, False, gen)
+    out += [timed("jaro_winkler/w2_w64", "jaro_winkler", w64,
+                  "w2, dense: uniform pairs of width 64"),
+            timed("jaro_winkler/g2_w64", "jaro_winkler", w64,
+                  "g2 (lane-group, forced), dense: the same pairs", words=-2),
+            timed("jaro_winkler/generic_w64", "jaro_winkler", w64,
+                  "w0 (generic, forced), dense: the same pairs", words=0)]
+    if not out[2]["ms"] < out[4]["ms"]:
+        raise AssertionError(f"the W = 2 form ({out[2]['ms']} ms) is not faster than the "
+                             f"generic one ({out[4]['ms']} ms) at width 64")
+    del w64
+    for width in (96, 128):
+        pairs = random_pairs(torch, WIDE_CHECK_PAIRS, width, False, gen)
+        new = timed(f"jaro_winkler/group_w{width}", "jaro_winkler", pairs,
+                    f"lane-group, dense: uniform pairs of width {width}")
+        old = timed(f"jaro_winkler/generic_w{width}", "jaro_winkler", pairs,
+                    "w0 (generic, forced), dense: the same pairs", words=0)
+        if not new["ms"] < old["ms"]:
+            raise AssertionError(f"the lane-group form ({new['ms']} ms) is not faster than the "
+                                 f"generic one ({old['ms']} ms) at width {width}")
+        new["speedup_over_generic"] = old["ms"] / new["ms"]
+        out += [new, old]
+        del pairs
+    wide128 = random_pairs(torch, WIDE_CHECK_PAIRS, 128, True, gen)
+    out.append(timed("jaro_winkler/group_w128_u32", "jaro_winkler", wide128,
+                     "lane-group, dense: uniform pairs of width 128, 32-bit codepoints"))
+    del wide128
+    for wide in (False, True):
+        pairs = random_pairs(torch, WIDE_CHECK_PAIRS, 264, wide, gen)
+        kind = "u32" if wide else "u8"
+        out.append(timed(f"levenshtein/generic_w264_{kind}", "levenshtein", pairs,
+                         f"w0 (generic), uniform pairs of width 264, {kind}"))
+        del pairs
+    return out
 
 
 def host_median_ms(fn, runs=HOST_RUNS):
@@ -1228,6 +1386,7 @@ def mesh_rank_child(rank: str, world: str, port: str, out_dir: str, rows: str,
                    "lam": float(lam), "m": m.tolist(), "u": u.tolist(),
                    "em_updates": len(linker.params.param_history),
                    "variant_launches": dict(strings_cuda.variant_launches)}, fh)
+    dist.shutdown_multihost()
     return 0
 
 
@@ -4178,12 +4337,14 @@ def main() -> int:
          libraries={k: os.path.relpath(v) for k, v in libs.items()},
          flags=strings_cuda.NVCC_FLAGS, res_usage=usage)
     for name, variants in strings_cuda.VARIANT_WORDS.items():
-        for w in (*variants, 0):
+        forms = [f"w{w}" for w in (*variants, 0)]
+        forms += ["group"] if name in strings_cuda.GROUP_LANES else []
+        for form in forms:
             for kind in ("u8", "u32"):
-                if f"{name}/{kind}/w{w}" not in usage:
-                    raise AssertionError(f"cuobjdump reports no {name}/{kind}/w{w}: {usage}")
+                if f"{name}/{kind}/{form}" not in usage:
+                    raise AssertionError(f"cuobjdump reports no {name}/{kind}/{form}: {usage}")
     zero_frames = [f"levenshtein/u8/w{w}" for w in strings_cuda.VARIANT_WORDS["levenshtein"]]
-    zero_frames += [f"jaro_winkler/{k}/w{w}" for w in (1, 2) for k in ("u8", "u32")]
+    zero_frames += [f"jaro_winkler/{k}/{f}" for f in ("w1", "w2", "group") for k in ("u8", "u32")]
     for variant in zero_frames:
         frame = usage[variant]["stack_bytes"]
         if frame != 0:
@@ -4202,11 +4363,22 @@ def main() -> int:
     for width in CHECK_WIDTHS:
         n = KERNEL_CHECK_PAIRS if width <= 32 else WIDE_CHECK_PAIRS
         for wide in (False, True):
-            check_kernels(torch, strings, strings_cuda, random_pairs(torch, n, width, wide, gen),
-                          gen)
             dtype = torch.int32 if wide else torch.uint8
+            jw_form = strings_cuda.kernel_variant("jaro_winkler", width, dtype)[1]
+            # the lane-group form at every density of the masked checks
+            check_kernels(torch, strings, strings_cuda, random_pairs(torch, n, width, wide, gen),
+                          gen, MASK_DENSITIES if jw_form < 0 else (0.5,))
             checked.append(f"{n}x{width}-" + ",".join(
-                "{}-{}-w{}".format(k, *strings_cuda.kernel_variant(k, width, dtype))
+                strings_cuda.variant_name(k, *strings_cuda.kernel_variant(k, width, dtype))
+                for k in KERNELS) + ("-masked" + "/".join(map(str, MASK_DENSITIES))
+                                     if jw_form < 0 else ""))
+    for width in EXTREME_WIDTHS:  # the widest lane group; the generic form past it
+        for wide in (False, True):
+            check_kernels(torch, strings, strings_cuda,
+                          random_pairs(torch, EXTREME_CHECK_PAIRS, width, wide, gen), gen)
+            dtype = torch.int32 if wide else torch.uint8
+            checked.append(f"{EXTREME_CHECK_PAIRS}x{width}-" + ",".join(
+                strings_cuda.variant_name(k, *strings_cuda.kernel_variant(k, width, dtype))
                 for k in KERNELS))
     check_kernels(torch, strings, strings_cuda, edge_pairs(torch), gen)
     checked.append("edge_cases")
@@ -4380,14 +4552,14 @@ def main() -> int:
                  f"main path batch {tuple(jw_batch[0].shape)}, {int(surv.sum())} survivors")
     jw_survivors = tuple(a[surv].contiguous() for a in jw_batch[:4])
 
-    def row(name, kernel, args, forms, launched, fn=None, **extra):
+    def row(name, kernel, args, forms, launched, fn=None, plain_runs=TIMING_RUNS, **extra):
         replaces, plain, wrap, ops = KERNELS[kernel]
         return {
             "name": name, "route": "cuda",
             "source": f"splink_tpu_torch/csrc/{kernel}.cu", "replaces": replaces,
             "launches": launched,
             **measure(torch, name, getattr(strings, plain),
-                      fn or getattr(strings_cuda, wrap), args, ops),
+                      fn or getattr(strings_cuda, wrap), args, ops, plain_runs),
             "library_ms": None,
             "res_usage": {k: usage[k] for k in forms},
             **extra,
@@ -4461,43 +4633,31 @@ def main() -> int:
                                                   WIDE_SETTINGS, wdf)
     wdp = wdp["match_probability"]
     multi_word = {k: v for k, v in wide_variants.items()
-                  if v > 0 and re.search(r"/w(\d+)", k).group(1) != "1"}
+                  if v > 0 and k.split("/")[2] != "w1"}
     for name in KERNELS:
         if not any(k.startswith(name + "/") for k in multi_word):
             raise AssertionError(f"the wide run launched no multi-word {name} kernel: "
                                  f"{wide_variants}")
     wide_cols = ("address", "notes", "employer")
-    for form in ("jaro_winkler/u8/w2/masked", "jaro_winkler/u8/w0/masked"):
+    for form in ("jaro_winkler/u8/w2/masked", "jaro_winkler/u8/g3/masked"):
         if not wide_variants.get(form):
             raise AssertionError(f"the wide run launched no {form}: {wide_variants}")
+    if any(k.startswith("jaro_winkler/") and "/w0" in k for k in wide_variants):
+        raise AssertionError(f"the wide run launched the generic form: {wide_variants}")
     emit("wide", rows=len(wdf), pairs=wg._pairs.n_pairs,
          widths={c: wg._table.strings[c].width for c in wide_cols},
          variant_launches=wide_variants, max_abs_dp=wdp,
          gamma_levels={c: np.unique(wgdf[f"gamma_{c}"]).tolist() for c in wide_cols})
-    # Jaro-Winkler's W = 2 form against the generic one (timed for the first
-    # time) at the wide phase's width 64; their launches are the wide run's
-    # (their path: columns of width 33-64 and wider ones)
-    w64 = random_pairs(torch, WIDE_CHECK_PAIRS, 64, False, gen)
 
-    def generic(s1, s2, l1, l2, mask=None):
-        out = torch.empty(s1.shape[0], dtype=torch.float32, device=s1.device)
-        return strings_cuda._launch("jaro_winkler", out, s1, s2, l1, l2, 0.1, 0.7,
-                                    mask=mask, words=0)
-
-    launched = lambda w: sum(v for k, v in wide_variants.items()  # noqa: E731
-                             if k.startswith(f"jaro_winkler/u8/w{w}"))
-    two_words = row("jaro_winkler/w2_w64", "jaro_winkler", w64, ["jaro_winkler/u8/w2"],
-                    launched(2), form="w2, dense: uniform pairs of width 64",
-                    launches_from="wide phase")
-    generic_row = row("jaro_winkler/generic_w64", "jaro_winkler", w64, ["jaro_winkler/u8/w0"],
-                      launched(0), fn=generic,
-                      form="w0 (generic), dense: the same pairs of width 64",
-                      launches_from="wide phase")
-    if not two_words["ms"] < generic_row["ms"]:
-        raise AssertionError(f"the W = 2 form ({two_words['ms']} ms) is not faster than the "
-                             f"generic one ({generic_row['ms']} ms) at width 64")
-    rows[3:3] = [two_words, generic_row]
-    del w64
+    # the same columns at full size, training only, two-phase then dense
+    t0 = time.perf_counter()
+    big_wide = make_addresses(WIDE_JOB_ROWS, SEED + 1)
+    wide_gen_s = time.perf_counter() - t0
+    wjob, wcap = wide_job(torch, splink_tpu_torch, strings_cuda, native, tf, big_wide)
+    del big_wide
+    emit("wide_job", data_gen_s=wide_gen_s, **wjob)
+    rows[3:3] = wide_kernel_rows(torch, strings_cuda, row, gen, wide_variants, wjob, wcap)
+    del wcap
 
     # -- model JSON round trip on the card ------------------------------------
     path = os.path.join(out_dir, "model.json")

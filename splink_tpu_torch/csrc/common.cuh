@@ -160,8 +160,9 @@ __device__ __forceinline__ uint32_t eq4(uint32_t packed, uint32_t bc) {
 // register (8 per word), 32-bit codepoints take one register each (32 per
 // word). eq<NG>(w, x) is the match mask of word w against the character x
 // (broadcast to four bytes for uint8), over its first NG groups of four
-// positions. Positions past the string's own length hold whatever the tile
-// holds there; callers mask them off.
+// positions; at(p) the character at position p. Positions past the
+// string's own length hold whatever the tile holds there; callers mask
+// them off.
 template <typename T, int W>
 struct Pattern;
 
@@ -181,6 +182,10 @@ struct Pattern<uint8_t, W> {
     for (int k = 0; k < NG; ++k) m |= eq4(pk[8 * w + k], bc) << (4 * k);
     return m;
   }
+  // the character at position p, for p fixed at compile time
+  __device__ __forceinline__ uint32_t at(int p) const {
+    return (pk[p >> 2] >> (8 * (p & 3))) & 0xFFu;
+  }
 };
 
 template <int W>
@@ -198,6 +203,7 @@ struct Pattern<uint32_t, W> {
     for (int k = 0; k < 4 * NG; ++k) m |= static_cast<uint32_t>(ch[32 * w + k] == c) << k;
     return m;
   }
+  __device__ __forceinline__ uint32_t at(int p) const { return ch[p]; }
 };
 
 }  // namespace splink

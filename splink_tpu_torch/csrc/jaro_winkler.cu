@@ -1,19 +1,24 @@
-// Batched Jaro-Winkler for Hopper (sm_90a), one pair per thread.
+// Batched Jaro-Winkler for Hopper (sm_90a).
 //
 // Replaces splink_tpu/ops/strings_pallas.py:jaro_winkler_pallas (body
 // _jw_kernel). The TPU kernel lays pairs on the 128 vector lanes and counts
 // prefixes with triangular matmuls on the MXU. Neither trick applies here:
-// a thread holds a whole pair and runs the bit-parallel scalar algorithm of
-// splink_tpu/ops/strings.py:jaro_winkler_bitmask_single on it.
+// the kernel runs the bit-parallel algorithm of
+// splink_tpu/ops/strings.py:jaro_winkler_bitmask_single, on one thread per
+// pair up to width 64 and on a group of lanes per pair past it.
 //
 // What bounds it on this card: a pair is 2L bytes of characters, 8 bytes of
-// lengths and 4 bytes out, against, per character of the shorter string,
-// one match mask over the longer string (ceil(L / 4) SWAR compares for
-// uint8) and a handful of word operations, so at the widths of real
-// columns HBM bounds it if the work stays in registers and no lane of a
-// warp idles. The fixed-width kernel (W = 1 for width <= 32, W = 2 for
-// width <= 64, whose sets are 64-bit words) shares the block structure of
-// levenshtein.cu (common.cuh):
+// lengths and 4 bytes out, against, per character of the shorter string
+// (la steps), one match mask over the longer string (ceil(lb / 4) SWAR
+// compares for uint8, lb compares for 32-bit codepoints) and 11 word
+// operations for the window, the claim and the two sets (chip_smoke.py's
+// jw_ops). At width 32 the bytes bound it; from about width 64 on, with
+// real lengths (both strings long, la close to lb), the integer work grows
+// with la * lb / 4 and bounds it instead.
+//
+// Fixed-width form (W = 1 for width <= 32, W = 2 for width <= 64, whose
+// sets are one 32- or 64-bit word), one pair per thread, sharing the block
+// structure of levenshtein.cu (common.cuh):
 //
 //   * the block's rows (two pairs per thread) of s1 and of s2 are staged
 //     into shared memory with coalesced 16-byte cp.async copies;
@@ -36,21 +41,56 @@
 //     characters from the staged tiles; the common prefix is a word-wise
 //     compare of the two rows and __ffs of the first difference.
 //
-// Masked launch: with a (B,) bool mask, the result is where(mask, jw, 0).
-// Each block reads its slice of the mask with coalesced loads, writes the
-// zeros of its masked-out rows, and compacts the indices of its survivors
-// in shared memory (__ballot_sync / __popc, in row order). A block without
-// survivors returns; the others stage only their survivors' rows and run
-// the body above on them. The two-phase gamma path launches this once per
+// Lane-group form, widths 65 to 1024 (and any width when forced): G =
+// ceil(width / 32) lanes of a warp share one pair, floor(32 / G) pairs to
+// a warp (G = 3 at width 96: ten pairs, two lanes idle). One thread per
+// pair at these widths would hold 8G words of the longer string and 2G
+// words of sets, and the step's compares grow with the width; the form
+// before this one kept the sets in global scratch and compared one
+// character at a time, at 1-8% of its bound (PERF.md). Here:
+//
+//   * rows are staged and the block's pairs ordered by the shorter length
+//     as in the fixed form, so the groups of a warp step together;
+//   * lane l owns positions [32l, 32l + 32) of the longer string, packed
+//     in 8 registers (uint8) or 32 (codepoints), and the word of `used`
+//     and of `matched` over the same positions, in registers: a step costs
+//     each lane one SWAR pass over its own word, so the G lanes split the
+//     ceil(lb / 4) compares that bound the step (a layout strided by 8,
+//     whose flags shift into position order without eq4's multiply, took
+//     more registers and ran slower);
+//   * greedy step for character i: each lane forms elig = match &
+//     window(i) & ~used on its word; one __ballot_sync over the warp names,
+//     per group, the lowest lane with a non-zero word, which claims elig &
+//     -elig: the lowest free in-window position, as the reference's greedy
+//     pass takes it. The lane owning position i of the shorter string sets
+//     its bit of `matched`. The loop runs to the warp's longest shorter
+//     length, so every lane reaches each ballot;
+//   * transpositions: popcount prefixes over the group (shuffles) rank
+//     each lane's matched positions; the lanes write the longer string's
+//     matched characters, in rank order, over its staged row (from the
+//     registers), and each lane compares its own matched characters of the
+//     shorter string with the ones of equal rank there; a shuffle sum
+//     counts the mismatches;
+//   * the common prefix: each lane finds the first difference in its word
+//     of the two rows, and a ballot takes the lowest lane's;
+//   * no global scratch: nothing of a pair leaves registers and the
+//     block's shared memory.
+//
+// Masked launch (every form): with a (B,) bool mask, the result is
+// where(mask, jw, 0). The staged forms read the block's slice of the mask
+// with coalesced loads, write the zeros of its masked-out rows and compact
+// the indices of its survivors in shared memory (__ballot_sync / __popc,
+// in row order); a block without survivors returns, the others stage only
+// their survivors' rows. The two-phase gamma path launches this once per
 // batch over the whole batch, so no host wait, gather or scatter is needed
 // around it.
 //
-// Columns wider than 64 take the generic form: the sets used (of b) and
-// matched (of a) are W = ceil(width / 32) words each in the caller's
-// scratch, characters are read from global memory, and a masked-out pair
-// writes 0 and returns. Both forms find the same lowest free in-window
-// match and walk the matched positions of both sides in order, so they
-// agree bit for bit.
+// Columns wider than 1024 take the generic form (variant 0): one thread a
+// pair, characters read from global memory, the sets used (of b) and
+// matched (of a) ceil(width / 32) words each in the block's shared memory
+// (up to width 929,792, where one thread's sets fill the 227 KB a block can
+// have). Every form finds the same lowest free in-window match and pairs
+// the matched positions of both sides in order, so they agree bit for bit.
 //
 // Numerics: Jaro-Winkler must be bit-identical to the reference's f32
 // expression, so every float operation is an explicit round-to-nearest
@@ -65,6 +105,10 @@
 
 namespace splink {
 namespace {
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxSmem = 227 * 1024;     // a block's shared memory, with the opt-in
+constexpr int kGroupTiles = 32 * 1024;   // the lane-group form's staged rows, a block
 
 // (m/l1 + m/l2 + (m - t)/m) / 3, then jaro + ell*scale*(1 - jaro), in the
 // reference's order of operations
@@ -105,6 +149,13 @@ __device__ __forceinline__ int lowest_bit(uint64_t x) {
 }
 __device__ __forceinline__ int bit_count(uint32_t x) { return __popc(x); }
 __device__ __forceinline__ int bit_count(uint64_t x) { return __popcll(x); }
+
+// Positions 0 .. n - 1 of a word, n clamped to [0, 32]: all-ones shifted
+// right by 32 - n, a shift the clamping funnel shift takes up to 32 (n <= 0
+// shifts everything out).
+__device__ __forceinline__ uint32_t bits_below(int n) {
+  return __funnelshift_rc(kFull, 0u, static_cast<unsigned>(32 - min(n, 32)));
+}
 
 // Jaro-Winkler of one staged pair, width <= 32 W, with the jar
 // (commons-text) semantics of splink_tpu/ops/strings.py:
@@ -198,15 +249,14 @@ __device__ __forceinline__ float jw_pair(const Pattern<T, W>& pat, const unsigne
   return jw_value(m, mismatched, ell, l1, l2, lb, prefix_scale, boost_threshold);
 }
 
-// Shared memory of a block: the two tiles (each with slack, 16-byte
-// aligned); per slot (a survivor, in row order) both lengths, its row in
-// the block and its place in the order; the counting sort's histogram over
-// the shorter length 0..width; per 32 rows the survivor count, then their
-// total.
+// Shared memory of a staged block of `rows` pairs: the two tiles (each
+// with slack, 16-byte aligned); per slot (a survivor, in row order) both
+// lengths, its row in the block and its place in the order; the counting
+// sort's histogram over the shorter length 0..width; per 32 rows the
+// survivor count, then their total.
 struct Layout {
   int tile, len1, len2, rowid, order, hist, counts, bytes;
-  __host__ __device__ Layout(int threads, int rowbytes, int width) {
-    const int rows = kRows * threads;
+  __host__ __device__ Layout(int rows, int rowbytes, int width) {
     tile = (rows * rowbytes + kSlack + 15) & ~15;
     len1 = 2 * tile;
     len2 = len1 + 4 * rows;
@@ -214,9 +264,57 @@ struct Layout {
     order = rowid + 4 * rows;
     hist = order + 4 * rows;
     counts = hist + 4 * (width + 1);
-    bytes = counts + 4 * (rows / 32 + 1);
+    bytes = counts + 4 * ((rows + 31) / 32 + 1);
   }
 };
+
+// The block's survivors under `mask`, for the rows [first, first + rows)
+// of a block of `per_block` (<= 1024, at most R * blockDim.x) rows:
+// writes 0 to the rows the mask drops and the in-block indices of the
+// others, in row order, to rowid[0 .. count); `counts` holds
+// ceil(per_block / 32) + 1 ints. Every thread of the block calls it and
+// gets the count; at 0 it returns before writing rowid, and the caller
+// returns too.
+template <int R>
+__device__ __forceinline__ int compact_survivors(const bool* __restrict__ mask, int64_t first,
+                                                 int rows, int per_block, int* counts,
+                                                 int* rowid, float* __restrict__ out) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int chunks = (per_block + 31) >> 5;
+  bool keep[R];
+  uint32_t ballot[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = r * blockDim.x + tid;
+    keep[r] = row < rows && mask[first + row];
+    if (row < rows && !keep[r]) out[first + row] = 0.0f;
+    ballot[r] = __ballot_sync(kFull, keep[r]);
+    if (lane == 0 && row < per_block) counts[row >> 5] = __popc(ballot[r]);
+  }
+  __syncthreads();
+  if (tid < 32) {  // exclusive scan of the per-32-row counts; the total last
+    const int c = tid < chunks ? counts[tid] : 0;
+    int incl = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, d);
+      if (tid >= d) incl += v;
+    }
+    if (tid < chunks) counts[tid] = incl - c;
+    if (tid == 31) counts[chunks] = incl;
+  }
+  __syncthreads();
+  const int count = counts[chunks];
+  if (count == 0) return 0;  // the same count in every thread
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = r * blockDim.x + tid;
+    if (keep[r]) rowid[counts[row >> 5] + __popc(ballot[r] & ((1u << lane) - 1u))] = row;
+  }
+  __syncthreads();
+  return count;
+}
 
 // Width <= 32 W (W = 1, 2). `mask` is null for the dense launch.
 template <typename T, int W>
@@ -228,7 +326,8 @@ __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restric
                                     float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rowbytes = width * static_cast<int>(sizeof(T));
-  const Layout lay(blockDim.x, rowbytes, width);
+  const int per_block = kRows * blockDim.x;
+  const Layout lay(per_block, rowbytes, width);
   unsigned char* t1 = smem;
   unsigned char* t2 = smem + lay.tile;
   int* len1 = reinterpret_cast<int*>(smem + lay.len1);
@@ -238,7 +337,6 @@ __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restric
   int* hist = reinterpret_cast<int*>(smem + lay.hist);
   int* counts = reinterpret_cast<int*>(smem + lay.counts);
   const int tid = threadIdx.x;
-  const int per_block = kRows * blockDim.x;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * per_block;
   const int rows = n - first < per_block ? static_cast<int>(n - first) : per_block;
   const unsigned char* g1 = reinterpret_cast<const unsigned char*>(s1) + first * rowbytes;
@@ -248,39 +346,8 @@ __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restric
   // the block's slots: its survivors in row order (every row when dense)
   int count = rows;
   if (mask != nullptr) {
-    const int lane = tid & 31;
-    const int chunks = per_block >> 5;
-    bool keep[kRows];
-    uint32_t ballot[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = r * blockDim.x + tid;
-      keep[r] = row < rows && mask[first + row];
-      if (row < rows && !keep[r]) out[first + row] = 0.0f;
-      ballot[r] = __ballot_sync(0xFFFFFFFFu, keep[r]);
-      if (lane == 0) counts[row >> 5] = __popc(ballot[r]);
-    }
-    __syncthreads();
-    if (tid < 32) {  // exclusive scan of the per-32-row counts; the total last
-      const int c = tid < chunks ? counts[tid] : 0;
-      int incl = c;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-        if (tid >= d) incl += v;
-      }
-      if (tid < chunks) counts[tid] = incl - c;
-      if (tid == 31) counts[chunks] = incl;
-    }
-    __syncthreads();
-    count = counts[chunks];
+    count = compact_survivors<kRows>(mask, first, rows, per_block, counts, rowid, out);
     if (count == 0) return;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = r * blockDim.x + tid;
-      if (keep[r]) rowid[counts[row >> 5] + __popc(ballot[r] & ((1u << lane) - 1u))] = row;
-    }
-    __syncthreads();
     stage_rows(t1, g1, rowid, count, rowbytes);
     stage_rows(t2, g2, rowid, count, rowbytes);
   } else {
@@ -332,8 +399,7 @@ __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restric
     const bool swap = l1 > l2;
     const int la = min(max(swap ? l2 : l1, 0), width);
     const int lb = min(max(swap ? l1 : l2, 0), width);
-    const int span =
-        static_cast<int>(__reduce_max_sync(0xFFFFFFFFu, static_cast<unsigned>(lb)));
+    const int span = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(lb)));
     const int off = max(slot, 0) * rowbytes;
     const unsigned char* ta = swap ? t2 : t1;
     const unsigned char* tb = swap ? t1 : t2;
@@ -359,19 +425,202 @@ __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restric
   }
 }
 
-// The same function for any width: the characters are read in place from
-// global memory and the sets used (of b) and matched (of a) are W =
-// ceil(width / 32) words each in the caller's scratch, 2 * W * n uint32,
-// word k of pair p's used set at k * n + p and of its matched set at
-// (W + k) * n + p, so a warp's accesses to one word are contiguous.
+// Lane-group form, width <= 32 * lanes: `lanes` (1..32) lanes of a warp
+// per pair, floor(32 / lanes) pairs a warp, one pair a group and block
+// (blockDim.x / 32) * floor(32 / lanes) pairs a block. `mask` is null for
+// the dense launch.
+template <typename T>
+__global__ void jaro_winkler_group_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
+                                          const int32_t* __restrict__ l1p,
+                                          const int32_t* __restrict__ l2p,
+                                          const bool* __restrict__ mask, int64_t n, int width,
+                                          int lanes, float prefix_scale, float boost_threshold,
+                                          float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kEl = static_cast<int>(sizeof(T));
+  const int rowbytes = width * kEl;
+  const int groups = 32 / lanes;  // per warp
+  const int per_block = static_cast<int>(blockDim.x >> 5) * groups;
+  const Layout lay(per_block, rowbytes, width);
+  unsigned char* t1 = smem;
+  unsigned char* t2 = smem + lay.tile;
+  int* len1 = reinterpret_cast<int*>(smem + lay.len1);
+  int* len2 = reinterpret_cast<int*>(smem + lay.len2);
+  int* rowid = reinterpret_cast<int*>(smem + lay.rowid);
+  int* order = reinterpret_cast<int*>(smem + lay.order);
+  int* hist = reinterpret_cast<int*>(smem + lay.hist);
+  int* counts = reinterpret_cast<int*>(smem + lay.counts);
+  const int tid = threadIdx.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int rows = n - first < per_block ? static_cast<int>(n - first) : per_block;
+  const unsigned char* g1 = reinterpret_cast<const unsigned char*>(s1) + first * rowbytes;
+  const unsigned char* g2 = reinterpret_cast<const unsigned char*>(s2) + first * rowbytes;
+  for (int k = tid; k <= width; k += blockDim.x) hist[k] = 0;
+
+  int count = rows;
+  if (mask != nullptr) {
+    count = compact_survivors<1>(mask, first, rows, per_block, counts, rowid, out);
+    if (count == 0) return;
+    stage_rows(t1, g1, rowid, count, rowbytes);
+    stage_rows(t2, g2, rowid, count, rowbytes);
+  } else {
+    stage_tile(t1, g1, rows * rowbytes);
+    stage_tile(t2, g2, rows * rowbytes);
+    __syncthreads();  // the histogram is zeroed
+  }
+
+  // lengths and the counting sort by the shorter length; per_block <=
+  // blockDim.x, so a thread sorts at most one slot
+  int key = 0;
+  int rank = 0;
+  if (tid < count) {
+    const int64_t row = first + (mask != nullptr ? rowid[tid] : tid);
+    const int a = l1p[row];
+    const int b = l2p[row];
+    len1[tid] = a;
+    len2[tid] = b;
+    key = min(max(min(a, b), 0), width);
+    rank = atomicAdd(&hist[key], 1);
+  }
+  __syncthreads();
+  exclusive_scan_bins(hist, width + 1);
+  __syncthreads();
+  if (tid < count) order[hist[key] + rank] = tid;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this lane's group (gw-th of its warp, lanes gbase .. gbase + lanes - 1)
+  // and its place l in it; lanes past the last whole group hold no pair
+  const int lane = tid & 31;
+  const int gw = lane / lanes;
+  const int gbase = gw * lanes;
+  const int l = lane - gbase;
+  // in a ballot: the group's lanes, and those below this one
+  const uint32_t group_bits = (lanes >= 32 ? kFull : (1u << lanes) - 1u) << gbase;
+  const uint32_t lower_bits = ((1u << l) - 1u) << gbase;
+  const int k = (tid >> 5) * groups + gw;  // the group's pair, by shorter length
+  const int slot = gw < groups && k < count ? order[k] : -1;
+  const int l1 = slot >= 0 ? len1[slot] : 0;
+  const int l2 = slot >= 0 ? len2[slot] : 0;
+  const bool swap = l1 > l2;
+  const int la = min(max(swap ? l2 : l1, 0), width);
+  const int lb = min(max(swap ? l1 : l2, 0), width);
+  const int window = max(lb / 2 - 1, 0);
+  const int off = max(slot, 0) * rowbytes;
+  const unsigned char* ta = swap ? t2 : t1;
+  unsigned char* tb = swap ? t1 : t2;
+  const int lo = 32 * l;  // this lane's first position
+  Pattern<T, 1> pat;      // positions lo .. lo + 31 of the longer string
+  pat.load(tb, off + lo * kEl, min(max(lb - lo, 0), 32));
+
+  // greedy pass: a[i] claims the lowest unused in-window j with b[j] == a[i].
+  // The window [i - window, i + window] cut to [0, lb), in this lane's
+  // word: bits below min(i + hi_at, lb_at), none below i + lo_at
+  const int hi_at = window + 1 - lo;
+  const int lb_at = lb - lo;
+  const int lo_at = -window - lo;
+  uint32_t used = 0u;     // matched positions of b in this lane's word
+  uint32_t matched = 0u;  // matched positions of a in this lane's word
+  auto step = [&](int i, uint32_t x) {
+    const uint32_t win = bits_below(min(i + hi_at, lb_at)) & ~bits_below(i + lo_at);
+    const uint32_t elig = i < la ? pat.template eq<8>(0, x) & win & ~used : 0u;
+    const uint32_t ballot = __ballot_sync(kFull, elig != 0u);
+    // the group's lowest lane with an eligible position claims its lowest
+    if (elig != 0u && !(ballot & lower_bits)) used |= elig & (0u - elig);
+    if ((ballot & group_bits) && l == i >> 5) matched |= 1u << (i & 31);
+  };
+  const int steps = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(la)));
+  if constexpr (kEl == 1) {
+    for (int i = 0; i < steps; i += 4) {
+      const uint32_t four = load_word(ta, off + i);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)  // byte q of `four` broadcast to all four bytes
+        if (i + q < steps) step(i + q, __byte_perm(four, 0u, 0x1111u * q));
+    }
+  } else {
+    const uint32_t* tx = reinterpret_cast<const uint32_t*>(ta + off);
+    for (int i = 0; i < steps; ++i) step(i, tx[i]);
+  }
+
+  // rank prefixes of the matched positions over the group, both sides
+  const int ca = __popc(matched);
+  const int cb = __popc(used);
+  int ia = ca;
+  int ib = cb;
+  for (int d = 1; d < lanes; d <<= 1) {
+    const int va = __shfl_up_sync(kFull, ia, d);
+    const int vb = __shfl_up_sync(kFull, ib, d);
+    if (l >= d) {
+      ia += va;
+      ib += vb;
+    }
+  }
+  const int m = __shfl_sync(kFull, ia, gbase + lanes - 1);
+
+  // common-prefix run of s1 and s2, at most la: the first difference in
+  // this lane's word of the two rows, then the lowest lane's
+  int diff = 32;
+  const int own = min(max(la - lo, 0), 32);  // this lane's positions below la
+  if constexpr (kEl == 1) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (4 * q < own && diff == 32) {
+        const uint32_t x = load_word(t1, off + lo + 4 * q) ^ load_word(t2, off + lo + 4 * q);
+        if (x) diff = 4 * q + ((__ffs(x) - 1) >> 3);
+      }
+    }
+  } else {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(t1 + off) + lo;
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(t2 + off) + lo;
+    for (int j = 0; j < own; ++j) {
+      if (p[j] != q[j]) {
+        diff = j;
+        break;
+      }
+    }
+  }
+  const uint32_t differs = (__ballot_sync(kFull, diff < own) & group_bits) >> gbase;
+  const int at = differs ? __ffs(differs) - 1 : 0;
+  const int first_diff = __shfl_sync(kFull, diff, gbase + at);
+  const int ell = differs ? min(la, 32 * at + first_diff) : la;
+
+  // transpositions: the longer string's matched characters, in rank order,
+  // over its staged row; then each lane's matched characters of the
+  // shorter string against the ones of equal rank
+  __syncwarp();  // every lane has read the rows for the prefix
+  T* bq = reinterpret_cast<T*>(tb + off);
+  int r = ib - cb;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    if (used >> j & 1u) bq[r++] = static_cast<T>(pat.at(j));
+  __syncwarp();
+  const T* a = reinterpret_cast<const T*>(ta + off);
+  int mismatched = 0;
+  r = ia - ca;
+  for (uint32_t ra = matched; ra; ra &= ra - 1u) mismatched += a[lo + __ffs(ra) - 1] != bq[r++];
+  for (int d = 1; d < lanes; d <<= 1) {
+    const int v = __shfl_down_sync(kFull, mismatched, d);
+    if (l + d < lanes) mismatched += v;
+  }
+
+  if (slot >= 0 && l == 0)
+    out[first + (mask != nullptr ? rowid[slot] : slot)] =
+        jw_value(m, mismatched, ell, l1, l2, lb, prefix_scale, boost_threshold);
+}
+
+// Any width (variant 0): one thread a pair, characters read in place from
+// global memory, the sets used (of b) and matched (of a) W = ceil(width /
+// 32) words each in the block's shared memory, word k of thread t's used
+// set at k * blockDim.x + t and of its matched set at (W + k) * blockDim.x
+// + t, so a warp's accesses to one word fall in distinct banks.
 template <typename T>
 __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
                                          const int32_t* __restrict__ l1p,
                                          const int32_t* __restrict__ l2p,
                                          const bool* __restrict__ mask, int64_t n,
-                                         int width, uint32_t* __restrict__ scratch,
-                                         float prefix_scale, float boost_threshold,
+                                         int width, float prefix_scale, float boost_threshold,
                                          float* __restrict__ out) {
+  extern __shared__ uint32_t sets[];
   const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n) return;
   if (mask != nullptr && !mask[p]) {
@@ -387,9 +636,10 @@ __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __re
   const T* b = swap ? s1 + p * width : s2 + p * width;
   const int window = max(lb / 2 - 1, 0);
   const int words = (width + 31) >> 5;
-  uint32_t* used = scratch + p;
-  uint32_t* matched = scratch + static_cast<int64_t>(words) * n + p;
-  for (int k = 0; k < words; ++k) used[k * n] = matched[k * n] = 0u;
+  const int stride = blockDim.x;
+  uint32_t* used = sets + threadIdx.x;
+  uint32_t* matched = sets + words * stride + threadIdx.x;
+  for (int k = 0; k < words; ++k) used[k * stride] = matched[k * stride] = 0u;
 
   // greedy pass: a[i] claims the lowest unused in-window j with b[j] == a[i]
   int m = 0;
@@ -399,9 +649,9 @@ __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __re
     const T ai = a[i];
     for (int j = lo; j < hi; ++j) {
       const uint32_t bit = 1u << (j & 31);
-      if (b[j] == ai && !(used[(j >> 5) * n] & bit)) {
-        used[(j >> 5) * n] |= bit;
-        matched[(i >> 5) * n] |= 1u << (i & 31);
+      if (b[j] == ai && !(used[(j >> 5) * stride] & bit)) {
+        used[(j >> 5) * stride] |= bit;
+        matched[(i >> 5) * stride] |= 1u << (i & 31);
         ++m;
         break;
       }
@@ -416,8 +666,8 @@ __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __re
   uint32_t ra = matched[0];
   uint32_t rb = used[0];
   for (int r = 0; r < m; ++r) {
-    while (ra == 0u) ra = matched[++ka * n];
-    while (rb == 0u) rb = used[++kb * n];
+    while (ra == 0u) ra = matched[++ka * stride];
+    while (rb == 0u) rb = used[++kb * stride];
     mismatched += a[32 * ka + __ffs(ra) - 1] != b[32 * kb + __ffs(rb) - 1];
     ra &= ra - 1u;
     rb &= rb - 1u;
@@ -429,34 +679,79 @@ __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __re
   out[p] = jw_value(m, mismatched, ell, l1, l2, lb, prefix_scale, boost_threshold);
 }
 
+// Opt a kernel into more than the default 48 KB of dynamic shared memory.
+template <typename K>
+int allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
 template <typename T, int W>
 int launch_words(const T* a, const T* b, const int32_t* la, const int32_t* lb, const bool* mk,
                  int64_t n, int width, float prefix_scale, float boost_threshold, float* o,
                  cudaStream_t stream) {
   const int rowbytes = width * static_cast<int>(sizeof(T));
   const int threads = threads_for(rowbytes);
-  const int smem = Layout(threads, rowbytes, width).bytes;
+  const int smem = Layout(kRows * threads, rowbytes, width).bytes;
   auto kernel = jaro_winkler_kernel<T, W>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (const int e = allow_smem(kernel, smem)) return e;
   kernel<<<grid_for(n, kRows * threads), threads, smem, stream>>>(
       a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o);
   return 0;
 }
 
+// The lane-group form: 256 threads a block, halved (down to one warp)
+// while the staged rows pass kGroupTiles.
+template <typename T>
+int launch_group(const T* a, const T* b, const int32_t* la, const int32_t* lb, const bool* mk,
+                 int64_t n, int width, int lanes, float prefix_scale, float boost_threshold,
+                 float* o, cudaStream_t stream) {
+  const int rowbytes = width * static_cast<int>(sizeof(T));
+  const int groups = 32 / lanes;
+  int threads = kThreads;
+  while (threads > 32 && 2 * (threads / 32) * groups * rowbytes > kGroupTiles) threads >>= 1;
+  const int per_block = threads / 32 * groups;
+  const int smem = Layout(per_block, rowbytes, width).bytes;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = jaro_winkler_group_kernel<T>;
+  if (const int e = allow_smem(kernel, smem)) return e;
+  kernel<<<grid_for(n, per_block), threads, smem, stream>>>(
+      a, b, la, lb, mk, n, width, lanes, prefix_scale, boost_threshold, o);
+  return 0;
+}
+
+// The generic form: as many threads (up to 256) as keep the sets within
+// 48 KB, fewer than a warp only past width 6,144.
+template <typename T>
+int launch_generic(const T* a, const T* b, const int32_t* la, const int32_t* lb,
+                   const bool* mk, int64_t n, int width, float prefix_scale,
+                   float boost_threshold, float* o, cudaStream_t stream) {
+  const int per_thread = 8 * ((width + 31) >> 5);  // both sets, bytes
+  if (per_thread > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  int threads = kThreads;
+  while (threads > 1 && threads * per_thread > 48 * 1024) threads >>= 1;
+  const int smem = threads * per_thread;
+  auto kernel = jaro_winkler_wide_kernel<T>;
+  if (const int e = allow_smem(kernel, smem)) return e;
+  kernel<<<grid_for(n, threads), threads, smem, stream>>>(a, b, la, lb, mk, n, width,
+                                                          prefix_scale, boost_threshold, o);
+  return 0;
+}
+
 template <typename T>
 int launch(const void* s1, const void* s2, const void* l1, const void* l2, const void* mask,
-           int64_t n, int width, int words, void* scratch, float prefix_scale,
-           float boost_threshold, void* out, cudaStream_t stream) {
+           int64_t n, int width, int words, float prefix_scale, float boost_threshold,
+           void* out, cudaStream_t stream) {
   const T* a = static_cast<const T*>(s1);
   const T* b = static_cast<const T*>(s2);
   const int32_t* la = static_cast<const int32_t*>(l1);
   const int32_t* lb = static_cast<const int32_t*>(l2);
   const bool* mk = static_cast<const bool*>(mask);
   float* o = static_cast<float*>(out);
+  if (words < 0)
+    return launch_group<T>(a, b, la, lb, mk, n, width, -words, prefix_scale, boost_threshold,
+                           o, stream);
   switch (words) {
     case 1:
       return launch_words<T, 1>(a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o,
@@ -465,10 +760,8 @@ int launch(const void* s1, const void* s2, const void* l1, const void* l2, const
       return launch_words<T, 2>(a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o,
                                 stream);
     default:
-      jaro_winkler_wide_kernel<T><<<grid_for(n, kThreads), kThreads, 0, stream>>>(
-          a, b, la, lb, mk, n, width, static_cast<uint32_t*>(scratch), prefix_scale,
-          boost_threshold, o);
-      return 0;
+      return launch_generic<T>(a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o,
+                               stream);
   }
 }
 
@@ -480,23 +773,23 @@ extern "C" {
 // s1, s2: (n, width) characters of `elem_bytes` bytes (1: uint8, 4: 32-bit
 // codepoints); l1, l2: (n,) int32; mask: (n,) bool, or null for every
 // pair; out: (n,) float32, 0 where the mask is false. `words` is the
-// variant: 1 or 2 with 32 * words >= width, or 0 for the generic form,
-// which needs `scratch` of 2 * ceil(width / 32) * n uint32.
+// variant: 1 or 2 (the fixed forms) with 32 * words >= width; -G for the
+// lane-group form with G lanes a pair, 1 <= G <= 32 and 32 * G >= width;
+// or 0 for the generic form (width <= 929,792).
 int splink_jaro_winkler(const void* s1, const void* s2, const void* l1, const void* l2,
-                        int64_t n, int width, int elem_bytes, int words, void* scratch,
-                        float prefix_scale, float boost_threshold, const void* mask,
-                        void* out, void* stream) {
-  if (words < 0 || words > 2 || (words > 0 && 32 * words < width) || width < 1 ||
-      (elem_bytes != 1 && elem_bytes != 4) || (words == 0 && scratch == nullptr))
+                        int64_t n, int width, int elem_bytes, int words, float prefix_scale,
+                        float boost_threshold, const void* mask, void* out, void* stream) {
+  const int lanes = words < 0 ? -words : words;
+  if (words < -32 || words > 2 || (words != 0 && 32 * lanes < width) || width < 1 ||
+      (elem_bytes != 1 && elem_bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int e = elem_bytes == 1
-                      ? splink::launch<uint8_t>(s1, s2, l1, l2, mask, n, width, words, scratch,
+                      ? splink::launch<uint8_t>(s1, s2, l1, l2, mask, n, width, words,
                                                 prefix_scale, boost_threshold, out, st)
                       : splink::launch<uint32_t>(s1, s2, l1, l2, mask, n, width, words,
-                                                 scratch, prefix_scale, boost_threshold, out,
-                                                 st);
+                                                 prefix_scale, boost_threshold, out, st);
     if (e != 0) return e;
   }
   return static_cast<int>(cudaGetLastError());

@@ -10,11 +10,14 @@ The counterpart of splink_tpu/ops/strings_pallas.py:
     ``levenshtein_pallas`` (strings_pallas.py:225) and must equal it
     exactly.
 
-Both take one pair per thread and every column width: the kernel variant
-is the number of 32-bit words W that a pair's per-position sets need
-(``kernel_variant``). Levenshtein runs a variant with W fixed at compile
-time up to width 256, Jaro-Winkler up to width 64; wider columns run each
-kernel's generic form, for which the wrapper allocates per-pair scratch.
+Every column width goes to a kernel: the kernel variant is the number of
+32-bit words W that a pair's per-position sets need (``kernel_variant``).
+Levenshtein runs a variant with W fixed at compile time, one pair per
+thread, up to width 256, and its generic form past it, for which the
+wrapper allocates per-pair scratch. Jaro-Winkler runs its fixed W = 1 and
+W = 2 forms up to width 64, the lane-group form (variant -G: G =
+ceil(width / 32) lanes of a warp share a pair, no scratch) up to width
+1024, and its generic form (variant 0, sets in shared memory) past it.
 Per pair the kernels read about 2L + 8 bytes and write 4; chip_smoke.py
 reports each one's time beside the larger of the bytes over 3.35 TB/s and
 its integer operations over the card's INT32 rate.
@@ -49,6 +52,9 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 KERNELS = ("jaro_winkler", "levenshtein")  # one csrc/<name>.cu each
 # Per kernel, the word counts compiled with W fixed; 0 names the generic form
 VARIANT_WORDS = {"jaro_winkler": (1, 2), "levenshtein": (1, 2, 4, 8)}
+# Per kernel, the most lanes of the lane-group form (variant -G, G lanes a
+# pair) for columns past its fixed forms; wider columns take the generic one
+GROUP_LANES = {"jaro_winkler": 32}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
@@ -58,14 +64,16 @@ NVCC_FLAGS = [
 # Launch counts: each wrapper adds one where it launches its kernel, and
 # nowhere else. chip_smoke.py zeroes them around the main path.
 launches = {name: 0 for name in KERNELS}
-# The same launches by variant, keyed "<kernel>/<u8|u32>/w<W>" (w0: generic),
+# The same launches by variant, keyed "<kernel>/<u8|u32>/w<W>" (w0: generic)
+# or "<kernel>/<u8|u32>/g<G>" (the lane-group form with G lanes a pair),
 # with "/masked" appended for a masked Jaro-Winkler launch.
 variant_launches: dict[str, int] = {}
 
 # When set to a dict, each wrapper records clones of the tensor arguments
-# of its FIRST launch under its name, the mask last where there is one
-# (chip_smoke.py holds the kernels against the plain versions at exactly
-# the shapes the main path gave them).
+# of its FIRST launch under its name, and of each variant's first launch
+# under the variant's key in ``variant_launches``, the mask last where there
+# is one (chip_smoke.py holds the kernels against the plain versions at
+# exactly the shapes the main path gave them).
 capture: dict | None = None
 
 _lock = threading.Lock()
@@ -76,10 +84,11 @@ _KINDS = {torch.uint8: "u8", torch.int32: "u32", torch.uint32: "u32"}
 
 
 def kernel_variant(kernel: str, width: int, dtype: torch.dtype) -> tuple[str, int]:
-    """The character type and word variant of ``kernel`` for a (B, width)
+    """The character type and variant of ``kernel`` for a (B, width)
     column: ("u8" | "u32", W) with W the least of VARIANT_WORDS[kernel]
-    such that 32 * W >= width, or 0 (generic) past the widest. Raises on
-    another dtype."""
+    such that 32 * W >= width; past the widest, -G for the lane-group form
+    with G = ceil(width / 32) lanes where the kernel has one with that many
+    (GROUP_LANES), else 0 (generic). Raises on another dtype."""
     kind = _KINDS.get(dtype)
     if kind is None:
         raise ValueError(f"unsupported character dtype {dtype}")
@@ -89,7 +98,15 @@ def kernel_variant(kernel: str, width: int, dtype: torch.dtype) -> tuple[str, in
     for w in VARIANT_WORDS[kernel]:
         if w >= words:
             return kind, w
+    if words <= GROUP_LANES.get(kernel, 0):
+        return kind, -words
     return kind, 0
+
+
+def variant_name(kernel: str, kind: str, words: int) -> str:
+    """The key of a variant in ``variant_launches`` (without "/masked"):
+    "<kernel>/<kind>/w<W>", or "<kernel>/<kind>/g<G>" for variant -G."""
+    return f"{kernel}/{kind}/" + (f"g{-words}" if words < 0 else f"w{words}")
 
 
 def build_dir() -> str:
@@ -162,14 +179,15 @@ def _load(name: str):
     with _lock:
         if not _libs:
             ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-            head = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+            head = [ptr, ptr, ptr, ptr, i64, i32, i32, i32]
             for kernel, path in build().items():
                 lib = ctypes.CDLL(path)
                 fn = getattr(lib, f"splink_{kernel}")
                 fn.restype = i32
-                # jaro_winkler: prefix_scale, boost_threshold, mask; then out, stream
-                tail = [f32, f32, ptr, ptr, ptr] if kernel == "jaro_winkler" else [ptr, ptr]
-                fn.argtypes = head + tail
+                # jaro_winkler: prefix_scale, boost_threshold, mask; levenshtein:
+                # scratch; then out, stream
+                tail = [f32, f32, ptr] if kernel == "jaro_winkler" else [ptr]
+                fn.argtypes = head + tail + [ptr, ptr]
                 _libs[kernel] = fn
         return _libs[name]
 
@@ -199,7 +217,8 @@ def _check(kernel, s1, s2, l1, l2) -> tuple[str, int]:
 def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
     """Launch one kernel on the current stream into ``out``; counts it and
     raises if CUDA refused the launch. ``words`` overrides the variant
-    (chip_smoke.py times the generic form at a width a fixed one covers)."""
+    (chip_smoke.py times other forms at a width that one covers: 0 the
+    generic form, -G the lane-group form with G lanes a pair)."""
     kind, chosen = _check(name, s1, s2, l1, l2)
     words = chosen if words is None else words
     B, width = s1.shape
@@ -210,27 +229,31 @@ def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
     fn = _load(name)
     if not B:
         return out
-    if capture is not None and name not in capture:
+    key = variant_name(name, kind, words) + ("" if mask is None else "/masked")
+    if capture is not None and (name not in capture or key not in capture):
         tensors = (s1, s2, l1, l2) if mask is None else (s1, s2, l1, l2, mask)
-        capture[name] = tuple(a.clone() for a in tensors)
-    scratch = None
-    if words == 0:  # generic form: 2 * ceil(width / 32) words per pair
-        scratch = torch.empty(2 * -(-width // 32) * B, dtype=torch.int32, device=s1.device)
+        tensors = tuple(a.clone() for a in tensors)
+        capture.setdefault(name, tensors)
+        capture.setdefault(key, tensors)
     if name == "jaro_winkler":
-        scalars = (*scalars, None if mask is None else mask.data_ptr())
+        extra = (*scalars, None if mask is None else mask.data_ptr())
+    else:  # Levenshtein's generic form takes 2 * ceil(width / 32) words a pair
+        scratch = None
+        if words == 0:
+            scratch = torch.empty(2 * -(-width // 32) * B, dtype=torch.int32, device=s1.device)
+        extra = (None if scratch is None else scratch.data_ptr(),)
     # the launcher runs on the CUDA runtime's current device: make it the
     # inputs' (a mesh shard on cuda:1 while cuda:0 is current would launch
     # on the wrong device with a foreign stream)
     with torch.cuda.device(s1.device):
         err = fn(
             s1.data_ptr(), s2.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, width,
-            s1.element_size(), words, None if scratch is None else scratch.data_ptr(),
-            *scalars, out.data_ptr(), torch.cuda.current_stream(s1.device).cuda_stream,
+            s1.element_size(), words, *extra, out.data_ptr(),
+            torch.cuda.current_stream(s1.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
-    key = f"{name}/{kind}/w{words}" + ("" if mask is None else "/masked")
     variant_launches[key] = variant_launches.get(key, 0) + 1
     return out
 

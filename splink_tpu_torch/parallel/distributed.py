@@ -94,6 +94,19 @@ def initialize_multihost(
         raise
 
 
+def shutdown_multihost() -> None:
+    """Leave the process group before the process exits: a barrier, so no
+    process tears its side down while a peer still uses it, then
+    ``destroy_process_group``. A no-op without a group. A process that
+    exits with the group still up leaves Gloo's threads to the
+    interpreter's teardown, which can abort it ("terminate called without
+    an active exception") after its work is done."""
+    if not distributed_is_initialized():
+        return
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def _local_card(process_id: int | None) -> int:
     """The card this process computes on: ``LOCAL_RANK`` where the launcher
     sets it (torchrun does), else the rank (``process_id``, or ``RANK``)

@@ -76,6 +76,30 @@ def test_initialize_multihost_explicit_misconfig_raises():
     assert not dist.distributed_is_initialized()
 
 
+def test_shutdown_multihost_without_a_group_is_noop():
+    dist.shutdown_multihost()
+    assert not dist.distributed_is_initialized()
+
+
+def test_shutdown_multihost_leaves_the_group():
+    """A real one-process Gloo group over local TCP: up after
+    initialize_multihost, gone after shutdown_multihost, and a second
+    shutdown is a no-op."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend="gloo")
+    try:
+        assert dist.distributed_is_initialized()
+        assert (dist.process_count(), dist.process_index()) == (1, 0)
+    finally:
+        dist.shutdown_multihost()
+    assert not dist.distributed_is_initialized()
+    dist.shutdown_multihost()
+
+
 @pytest.mark.parametrize("env, process_id, card", [
     ({"LOCAL_RANK": "3", "RANK": "7", "WORLD_SIZE": "8", "MASTER_ADDR": "h",
       "MASTER_PORT": "1"}, None, 3),   # torchrun: LOCAL_RANK names the card

@@ -10,8 +10,15 @@ prefix, and the f32 expression in the kernel's order) equals
 ``splink_tpu.ops.strings.jaro_winkler`` at every width 1 to 32 (W = 1) and
 at widths 33 to 64 (W = 2, 64-bit sets), uint8 and 32-bit codepoints, on
 seeded pairs with characters left past their lengths, and on the edge
-cases. The masked plain version equals where(mask, jw, 0) and the Pallas
-kernel (interpret mode) on the rows the mask keeps.
+cases. A second emulation holds the lane-group form (csrc/jaro_winkler.cu:
+jaro_winkler_group_kernel, columns wider than 64) to the reference the same
+way: a block's survivors compacted and staged, ordered by the shorter
+length, G = ceil(width / 32) lanes a pair, each lane's word of the longer
+string, of ``used`` and of ``matched``, the window cut to the lane's word,
+the group's lowest-lane claim, the rank compaction of the transpositions
+and the per-lane common prefix, at widths 65 to 1000, dense and masked.
+The masked plain version equals where(mask, jw, 0) and the Pallas kernel
+(interpret mode) on the rows the mask keeps.
 """
 
 import numpy as np
@@ -300,3 +307,262 @@ def test_masked_plain_equals_where_and_pallas(masked_inputs, density):
     # (tests/test_strings_pallas.py); the same tolerance here
     np.testing.assert_allclose(got.numpy()[keep], pallas[keep], rtol=0, atol=1e-5)
     assert (got.numpy()[~keep] == 0).all()
+
+
+# --------------------------------------------------------------------------
+# The lane-group form (columns wider than 64)
+# --------------------------------------------------------------------------
+
+GROUP_TILE_BYTES = 32 * 1024  # csrc/jaro_winkler.cu:kGroupTiles
+
+
+def _group_shape(width, wide):
+    """csrc/jaro_winkler.cu:launch_group: lanes a pair, pairs a warp, pairs a
+    block (256 threads, halved while the staged rows pass 32 KB)."""
+    lanes = -(-width // 32)
+    groups = 32 // lanes
+    rowbytes = width * (4 if wide else 1)
+    threads = 256
+    while threads > 32 and 2 * (threads // 32) * groups * rowbytes > GROUP_TILE_BYTES:
+        threads //= 2
+    return lanes, groups, threads // 32 * groups
+
+
+def _eq4_lanes(pk, c):
+    """_eq4 on every packed word of every lane at once: (lanes, 8) -> the
+    lanes' 32-bit match words (csrc/common.cuh:Pattern::eq<8>)."""
+    y = pk ^ np.uint64((c * 0x01010101) & M32)
+    t = (((y & np.uint64(0x7F7F7F7F)) + np.uint64(0x7F7F7F7F)) & np.uint64(M32)) | y
+    z = ~t & np.uint64(0x80808080)
+    flags = ((z * np.uint64(0x00204081)) & np.uint64(M32)) >> np.uint64(28)
+    return (flags << (np.uint64(4) * np.arange(8, dtype=np.uint64))).sum(axis=1)
+
+
+def _bits_below(n):
+    """csrc/jaro_winkler.cu:bits_below per lane: positions 0 .. n - 1 of a
+    word, n clamped to [0, 32]."""
+    return (np.uint64(1) << np.clip(n, 0, 32).astype(np.uint64)) - np.uint64(1)
+
+
+def _lowest_bits(x):
+    return [b for b in range(32) if x >> b & 1]
+
+
+def _group_pair(t1, t2, off, l1, l2, width, steps, wide, lanes):
+    """One staged pair through the lane-group form. t1, t2 are the block's
+    tiles (lists of characters: bytes for uint8, codepoints otherwise), the
+    pair's rows start at element ``off``; ``steps`` is the longest shorter
+    length of the pair's warp, which the greedy loop runs to. Writes the
+    longer string's matched characters over its row in the tile, as the
+    kernel does."""
+    swap = l1 > l2
+    la = min(max(l2 if swap else l1, 0), width)
+    lb = min(max(l1 if swap else l2, 0), width)
+    ta, tb = (t2, t1) if swap else (t1, t2)
+    window = max(lb // 2 - 1, 0)
+    lo = 32 * np.arange(lanes, dtype=np.int64)
+    span = np.clip(lb - lo, 0, 32)
+    # each lane's 32 positions of the longer string, zero past its span
+    if wide:
+        ch = np.array([[tb[off + lo[l] + k] if k < span[l] else 0 for k in range(32)]
+                       for l in range(lanes)], np.uint64)
+    else:
+        pk = np.array([[_load_word(tb, off + lo[l] + 4 * k) if 4 * k < span[l] else 0
+                        for k in range(8)] for l in range(lanes)], np.uint64)
+    used = np.zeros(lanes, np.uint64)
+    matched = np.zeros(lanes, np.uint64)
+    bit_of = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    for i in range(steps):
+        x = ta[off + i]
+        win = _bits_below(np.minimum(i + window + 1, lb) - lo) & ~_bits_below(i - window - lo)
+        if wide:
+            match = ((ch == np.uint64(x)) * bit_of).sum(axis=1).astype(np.uint64)
+        else:
+            match = _eq4_lanes(pk, x)
+        elig = match & win & ~used & np.uint64(M32) if i < la else np.zeros(lanes, np.uint64)
+        claim = np.flatnonzero(elig)  # the group's ballot
+        if claim.size:
+            w = claim[0]  # the lowest lane claims its lowest eligible position
+            e = int(elig[w])
+            used[w] |= np.uint64(e & -e)
+            matched[i >> 5] |= np.uint64(1 << (i & 31))
+    ca = [bin(int(v)).count("1") for v in matched]
+    cb = [bin(int(v)).count("1") for v in used]
+    ia, ib = np.cumsum(ca), np.cumsum(cb)
+    m = int(ia[-1])
+    # common prefix: each lane's first difference below la, the lowest lane's
+    own = np.clip(la - lo, 0, 32)
+    diff = [32] * lanes
+    for l in range(lanes):
+        if wide:
+            diff[l] = next((j for j in range(own[l])
+                            if t1[off + lo[l] + j] != t2[off + lo[l] + j]), 32)
+        else:
+            for q in range(8):
+                if 4 * q < own[l] and diff[l] == 32:
+                    x = (_load_word(t1, off + lo[l] + 4 * q)
+                         ^ _load_word(t2, off + lo[l] + 4 * q))
+                    if x:
+                        diff[l] = 4 * q + ((_ffs(x) - 1) >> 3)
+    differs = [l for l in range(lanes) if diff[l] < own[l]]
+    ell = min(la, 32 * differs[0] + diff[differs[0]]) if differs else la
+    # transpositions: b's matched characters in rank order over b's row,
+    # from the lanes' registers; then a's against them, rank by rank
+    for l in range(lanes):
+        r = int(ib[l]) - cb[l]
+        for j in _lowest_bits(int(used[l])):
+            tb[off + r] = int(ch[l, j]) if wide else (int(pk[l, j >> 2]) >> (8 * (j & 3))) & 0xFF
+            r += 1
+    mismatched = 0
+    for l in range(lanes):
+        r = int(ia[l]) - ca[l]
+        for j in _lowest_bits(int(matched[l])):
+            mismatched += ta[off + lo[l] + j] != tb[off + r]
+            r += 1
+    return _jw_value(m, mismatched, ell, l1, l2, lb)
+
+
+def _group_block(s1, s2, l1, l2, wide, mask=None):
+    """Pairs through the lane-group form, block by block as the kernel cuts
+    them: each block's survivors (every row when dense) staged back to back,
+    ordered by their shorter length, ``groups`` consecutive pairs sharing a
+    warp and so its longest shorter length as their step count. Rows the
+    mask drops read 0."""
+    n, width = s1.shape
+    lanes, groups, per_block = _group_shape(width, wide)
+    out = np.full(n, np.nan, np.float32)
+    for first in range(0, n, per_block):
+        rows = range(first, min(first + per_block, n))
+        keep = [r for r in rows if mask is None or mask[r]]
+        for r in rows:
+            if mask is not None and not mask[r]:
+                out[r] = 0.0
+        if not keep:
+            continue
+        t1 = [int(c) for r in keep for c in s1[r]] + [0] * 64
+        t2 = [int(c) for r in keep for c in s2[r]] + [0] * 64
+        la = [min(max(min(int(l1[r]), int(l2[r])), 0), width) for r in keep]
+        order = np.argsort(la, kind="stable")
+        for w in range(0, len(keep), groups):
+            slots = order[w:w + groups]
+            steps = max(la[s] for s in slots)
+            for s in slots:
+                r = keep[s]
+                out[r] = _group_pair(t1, t2, s * width, int(l1[r]), int(l2[r]), width, steps,
+                                     wide, lanes)
+    assert not np.isnan(out).any()
+    return out
+
+
+GROUP_WIDTHS = (65, 96, 127, 128, 129, 256, 300, 1000)
+GROUP_PAIRS = 16
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["u8", "u32"])
+def random_group_widths(request):
+    """Per width of the lane-group form, seeded pairs and the reference's
+    answers (one reference call at width 1000)."""
+    wide = request.param
+    rng = np.random.default_rng(20261019 + wide)
+    cases = {w: _random_pairs(rng, GROUP_PAIRS, w, wide) for w in GROUP_WIDTHS}
+    to = max(GROUP_WIDTHS)
+    pad = lambda a, w: np.pad(a, ((0, 0), (0, to - w)))  # noqa: E731
+    want = _reference(
+        np.concatenate([pad(c[0], w) for w, c in cases.items()]),
+        np.concatenate([pad(c[1], w) for w, c in cases.items()]),
+        np.concatenate([c[2] for c in cases.values()]),
+        np.concatenate([c[3] for c in cases.values()]), to=to,
+    ).reshape(len(cases), GROUP_PAIRS)
+    return wide, cases, dict(zip(cases, want))
+
+
+@pytest.mark.parametrize("width", GROUP_WIDTHS)
+def test_group_emulation_equals_reference(random_group_widths, width):
+    wide, cases, want = random_group_widths
+    got = _group_block(*cases[width], wide)
+    np.testing.assert_array_equal(got, want[width])
+    assert (got > 0).any()
+
+
+def _boundary_pairs():
+    """Pairs whose windows start or end on a lane's word boundary: at lb =
+    66 the window is 32, so a[0] reaches b[32] (lane 1's first position) and
+    a[64] reaches back to b[32] but not b[31]; at lb = 130 (window 64), a[0]
+    reaches b[64] and a[96] reaches back to b[32]; matches on either side of
+    a boundary and transpositions across lanes."""
+    return [
+        ("b" + "a" * 65, "c" * 32 + "b" + "c" * 33),
+        ("c" * 64 + "zc", "c" * 31 + "zz" + "c" * 33),
+        ("c" * 64 + "zc", "c" * 31 + "yz" + "c" * 33),
+        ("q" + "a" * 129, "c" * 64 + "q" + "c" * 65),
+        ("q" + "a" * 129, "c" * 65 + "q" + "c" * 64),
+        ("c" * 96 + "w" + "c" * 33, "d" * 32 + "w" + "d" * 97),
+        ("c" * 96 + "w" + "c" * 33, "d" * 31 + "w" + "d" * 98),
+        ("ab" * 40, "ba" * 40),
+        ("abcd" * 33, "bcda" * 33),
+        ("xyz" * 43 + "x", "zyx" * 43 + "z"),
+    ]
+
+
+GROUP_EDGE_CASES = {
+    "empty": [("", ""), ("", "abc" * 30), ("abc" * 30, ""), ("", "a")],
+    "identical": [("abcdefghijklmnopqrstuvwxyz" * 4,) * 2, ("a" * 128,) * 2,
+                  ("a" * 97,) * 2, ("ab" * 64, "ab" * 64), ("a" * 97, "a" * 128)],
+    "boundaries": _boundary_pairs(),
+    "hand": [("martha", "marhta"), ("dixon", "dicksonx"), ("jellyfish", "smellyfish"),
+             ("crate", "trace"), ("a" * 65, "a" * 64 + "b"), ("a" * 100 + "b", "b" + "a" * 100)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_EDGE_CASES))
+@pytest.mark.parametrize("wide", [False, True], ids=["u8", "u32"])
+def test_group_emulation_edge_cases(case, wide):
+    pairs = GROUP_EDGE_CASES[case]
+    for width in (65, 96, 128, 136, 300):
+        kept = [(x, y) for x, y in pairs if max(len(x), len(y)) <= width]
+        if not kept:
+            continue
+        s1, l1 = _encode([x for x, _ in kept], width, wide)
+        s2, l2 = _encode([y for _, y in kept], width, wide)
+        got = _group_block(s1, s2, l1, l2, wide)
+        want = _reference(s1, s2, l1, l2, to=width)
+        np.testing.assert_array_equal(got, want, f"{case} width {width}")
+
+
+def test_group_boundaries_reach_the_lane_edges():
+    """The boundary pairs really match across a lane's first or last
+    position: each pair with a planted match scores above zero, and the
+    pairs one position outside their window score zero."""
+    s1, l1 = _encode([x for x, _ in _boundary_pairs()], 136, False)
+    s2, l2 = _encode([y for _, y in _boundary_pairs()], 136, False)
+    got = _group_block(s1, s2, l1, l2, False)
+    assert got[0] > 0 and got[3] > 0 and got[5] > 0  # the window's edge, inside
+    assert got[4] == 0 and got[6] == 0  # one position outside
+
+
+@pytest.fixture(scope="module")
+def masked_group_inputs():
+    """Two blocks and more of width 96 (u8) and 300 (u32) pairs, and the
+    reference's answers."""
+    rng = np.random.default_rng(23)
+    out = {}
+    for width, wide, n in ((96, False, 200), (300, True, 40)):
+        s1, s2, l1, l2 = _random_pairs(rng, n, width, wide, alphabet=6)
+        out[width] = ((s1, s2, l1, l2), wide, _reference(s1, s2, l1, l2, to=width))
+    return out
+
+
+@pytest.mark.parametrize("density", [0.0, 0.002, 0.5, 1.0])
+@pytest.mark.parametrize("width", [96, 300])
+def test_group_emulation_masked(masked_group_inputs, density, width):
+    (s1, s2, l1, l2), wide, want = masked_group_inputs[width]
+    rng = np.random.default_rng(int(density * 1000) + width)
+    keep = rng.random(len(l1)) < density
+    if density == 0.002:
+        keep[[1, len(l1) - 3]] = True  # a survivor or two, in different blocks
+    got = _group_block(s1, s2, l1, l2, wide, mask=keep)
+    np.testing.assert_array_equal(got, np.where(keep, want, np.float32(0)))
+    # and the masked plain version of the port, which the CPU runs
+    args = tuple(torch.from_numpy(a) for a in (s1, s2, l1, l2))
+    plain = strings.jaro_winkler_plain(*args, mask=torch.from_numpy(keep))
+    np.testing.assert_array_equal(plain.numpy(), got)

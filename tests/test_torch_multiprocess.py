@@ -16,7 +16,9 @@ on the checkpoint, and one that cannot see it fails both.
 
 The workers are this file run as a script (``python
 tests/test_torch_multiprocess.py <mode> <rank> <world> <port> <out> [dir]``);
-they import nothing of JAX. Every launch has a wall limit and a free port.
+they import nothing of JAX. Every launch has a wall limit and a free port
+(taken again if a worker finds it in use), and every worker leaves the
+process group (``shutdown_multihost``) before it exits.
 """
 
 import json
@@ -127,6 +129,7 @@ def _worker(mode, rank, world, port, out, work_dir=None) -> int:
                       history=[[float(h["λ"])] for h in linker.params.param_history])
     with open(out, "w") as fh:
         json.dump(result, fh)
+    dist.shutdown_multihost()
     return 0
 
 
@@ -141,10 +144,31 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# The rendezvous port is free when _free_port returns it, but another
+# process on the host can take it before rank 0 binds it; a launch whose
+# worker says so is repeated on a new port, at most this many times
+PORT_ATTEMPTS = 3
+
+
 def _launch(tmp_path, mode, world=2, work_dir=None):
     """Run ``world`` workers to their end; their results in rank order.
     A worker that fails or outlives its wall limit fails the test with its
     stderr, after every worker is stopped."""
+    for _ in range(PORT_ATTEMPTS):
+        errors = _run_workers(tmp_path, mode, world, work_dir)
+        if not any("Address already in use" in e for e in errors):
+            break
+    assert not errors, "\n".join(errors)
+    results = []
+    for r in range(world):
+        with open(tmp_path / f"{mode}{r}.json") as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def _run_workers(tmp_path, mode, world, work_dir):
+    """One launch of the workers on a fresh port; the errors of those that
+    failed or outlived their wall limit, after every worker is stopped."""
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -171,12 +195,7 @@ def _launch(tmp_path, mode, world=2, work_dir=None):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert not errors, "\n".join(errors)
-    results = []
-    for o in outs:
-        with open(o) as fh:
-            results.append(json.load(fh))
-    return results
+    return errors
 
 
 def test_two_process_streamed_em_matches_single_process(tmp_path):

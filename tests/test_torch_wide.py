@@ -129,13 +129,15 @@ def test_eq4_flags_every_byte():
             assert _eq4(packed, c) == want
 
 
-# Levenshtein has fixed-W variants up to 8 words; Jaro-Winkler W = 1 and 2
-# and its wide (generic) form past width 64
+# Levenshtein has fixed-W variants up to 8 words; Jaro-Winkler W = 1 and 2,
+# its lane-group form (-G, G lanes a pair) up to width 1024 and its generic
+# form past it
 _VARIANTS = [("levenshtein", w, n) for w, n in
              [(8, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4), (200, 8), (256, 8),
               (264, 0), (1000, 0)]]
 _VARIANTS += [("jaro_winkler", w, n) for w, n in
-              [(8, 1), (32, 1), (33, 2), (64, 2), (65, 0), (256, 0), (264, 0)]]
+              [(8, 1), (32, 1), (33, 2), (64, 2), (65, -3), (256, -8), (264, -9), (96, -3),
+               (128, -4), (1000, -32), (1024, -32), (1025, 0), (4000, 0)]]
 
 
 @pytest.mark.parametrize("kernel,width,words", _VARIANTS)
@@ -144,6 +146,17 @@ def test_kernel_variant_by_width(kernel, width, words, dtype):
     kind, got = strings_cuda.kernel_variant(kernel, width, dtype)
     assert got == words
     assert kind == ("u8" if dtype == torch.uint8 else "u32")
+
+
+@pytest.mark.parametrize("kernel,kind,words,key", [
+    ("jaro_winkler", "u8", 1, "jaro_winkler/u8/w1"),
+    ("jaro_winkler", "u32", 0, "jaro_winkler/u32/w0"),
+    ("jaro_winkler", "u8", -3, "jaro_winkler/u8/g3"),
+    ("jaro_winkler", "u32", -32, "jaro_winkler/u32/g32"),
+    ("levenshtein", "u8", 8, "levenshtein/u8/w8"),
+])
+def test_variant_name(kernel, kind, words, key):
+    assert strings_cuda.variant_name(kernel, kind, words) == key
 
 
 def test_kernel_variant_refuses_other_dtypes():
