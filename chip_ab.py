@@ -13,6 +13,10 @@ other in this process, in the order given, on the same inputs:
   * the same on 100,000 seeded pairs of width 96 and of width 128 (uint8),
     each tree's own form for those widths (the lane-group form where a tree
     has one, the generic form before it);
+  * Levenshtein on 100,000 seeded pairs of width 264 and of width 512
+    (uint8), each tree's own form (the lane-group form where a tree has
+    one, the generic form before it): device and call ms, and its output,
+    which must be equal in every tree;
   * the whole two-phase Jaro-Winkler step of one column (bound, survivors,
     kernel, levels) on the first pair batch of chip_smoke.py's main path
     (1,000,000 seeded rows): median host ms from the call to a
@@ -39,6 +43,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WIDE_WIDTHS = (96, 128)  # Jaro-Winkler's columns past width 64
+LONG_WIDTHS = (264, 512)  # Levenshtein's columns past width 256
 
 
 def load_tree(tree: str):
@@ -92,13 +97,16 @@ def main(trees: list[str]) -> int:
         jw = strings_cuda.jaro_winkler_cuda(*args)
         wide = {w: cs.random_pairs(torch, cs.WIDE_CHECK_PAIRS, w, False, gen) for w in WIDE_WIDTHS}
         wide_jw = {w: strings_cuda.jaro_winkler_cuda(*a) for w, a in wide.items()}
+        long = {w: cs.random_pairs(torch, cs.WIDE_CHECK_PAIRS, w, False, gen) for w in LONG_WIDTHS}
+        long_lev = {w: strings_cuda.levenshtein_cuda(*a) for w, a in long.items()}
         pc, aux = cs.first_batch(torch, gammas, linker, col["col_name"])
         step_ms, lvl = cs.two_phase_step_ms(torch, gammas, pc, aux, thresholds)
         if not first:
-            first.update(jw=jw, lvl=lvl, wide=wide_jw)
+            first.update(jw=jw, lvl=lvl, wide=wide_jw, long=long_lev)
         elif not (torch.equal(jw, first["jw"]) and torch.equal(lvl, first["lvl"])
-                  and all(torch.equal(wide_jw[w], first["wide"][w]) for w in WIDE_WIDTHS)):
-            raise AssertionError(f"{tree}: Jaro-Winkler output or levels differ from {trees[0]}")
+                  and all(torch.equal(wide_jw[w], first["wide"][w]) for w in WIDE_WIDTHS)
+                  and all(torch.equal(long_lev[w], first["long"][w]) for w in LONG_WIDTHS)):
+            raise AssertionError(f"{tree}: string kernel output or levels differ from {trees[0]}")
         mod = sys.modules["splink_tpu_torch"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -123,11 +131,16 @@ def main(trees: list[str]) -> int:
                 "ms": cs.cuda_ms(torch, lambda a=a: strings_cuda.jaro_winkler_cuda(*a)),
                 "call_ms": cs.cuda_ms(torch, lambda a=a: strings_cuda.jaro_winkler_cuda(*a),
                                       device_only=False)} for w, a in wide.items()},
+            **{f"lev_100k_w{w}": {
+                "variant": strings_cuda.kernel_variant("levenshtein", w, torch.uint8)[1],
+                "ms": cs.cuda_ms(torch, lambda a=a: strings_cuda.levenshtein_cuda(*a)),
+                "call_ms": cs.cuda_ms(torch, lambda a=a: strings_cuda.levenshtein_cuda(*a),
+                                      device_only=False)} for w, a in long.items()},
             "two_phase_step": {"column": col["col_name"], "pairs": int(pc.len_l.shape[0]),
                                "host_ms_to_synchronize": step_ms},
             "kernel_launches": dict(strings_cuda.variant_launches),
         }), flush=True)
-        del pc, aux, args, jw, trained, wide, wide_jw
+        del pc, aux, args, jw, trained, wide, wide_jw, long, long_lev
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0),
                       "trees": trees}), flush=True)
     return 0

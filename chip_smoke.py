@@ -5,9 +5,10 @@
 
 Builds the hand-written CUDA string kernels from splink_tpu_torch/csrc,
 holds each against its plain PyTorch version on the card at every variant's
-widths (8 to 264, uint8 and 32-bit codepoints; Jaro-Winkler dense and
-masked), holds the masked Jaro-Winkler launch against the masked plain
-version at survivor densities 0, 0.2%, 50% and 100%, drives the resident
+widths (8 to 320, then 512, 1024 and 1056 on fewer pairs; uint8 and 32-bit
+codepoints; Jaro-Winkler dense and masked), holds the masked Jaro-Winkler
+launch against the masked plain version at survivor densities 0, 0.2%, 50%
+and 100%, drives the resident
 train-and-score path at full size through the public entry point (1,000,000
 seeded rows, ~16M candidate pairs, two Jaro-Winkler columns, one
 Levenshtein, one numeric, one exact; every Jaro-Winkler launch there must
@@ -22,8 +23,15 @@ training only, two-phase and dense: equal gamma matrices and parameters,
 the lane-group form launched masked and then dense, the generic form
 never), times Jaro-Winkler's W = 2, lane-group and generic forms against
 each other at widths 64 to 128 (the lane-group form must beat the generic
-one at 96 and 128) and Levenshtein's generic form at width 264, and
-round-trips the model through JSON. It builds the native
+one at 96 and 128), then drives a long free-text column at full size (the
+``long_text`` phase: 1,000,000 rows of 150-300 character descriptions,
+max_string_length 320, ~16.1M pairs, training only; every batch must
+launch Levenshtein's lane-group form with ten lanes a pair and nothing
+else, and the first batch's distances must equal the plain version's and
+the generic form's), holds its settings on a 1,024-row slice on the card
+against the CPU, times Levenshtein's lane-group form against its generic
+form at widths 264 (uint8, codepoints) and 512 (the lane-group form must
+be faster) and alone at 1024, and round-trips the model through JSON. It builds the native
 host library with g++ and holds each of its functions (the encoder, the
 self and cross joins) to its numpy plain version at the main path's shapes,
 array for array, and requires the main path's encode and blocking to have
@@ -192,11 +200,15 @@ SUBSET_ROWS = 20_000
 SEED = 20261016
 KERNEL_CHECK_PAIRS = 2_000_000
 WIDE_CHECK_PAIRS = 100_000  # past width 32, so that the plain versions fit
-CHECK_WIDTHS = (8, 24, 32, 40, 64, 128, 256, 264)
+CHECK_WIDTHS = (8, 24, 32, 40, 64, 128, 256, 264, 288, 320)
 MASK_DENSITIES = (0.0, 0.002, 0.5, 1.0)  # masked-launch checks at 2M x 24
 WIDE_JOB_ROWS = 1_000_000  # the wide columns at full size, training only
-EXTREME_WIDTHS = (1024, 1056)  # Jaro-Winkler's widest lane group, its generic form
+# the lane groups of 16 and 32 lanes, then both kernels' generic forms
+EXTREME_WIDTHS = (512, 1024, 1056)
 EXTREME_CHECK_PAIRS = 4_096  # the plain versions grow with the width squared
+LONG_JOB_ROWS = 1_000_000  # the long-text column at full size, training only
+LONG_PARITY_ROWS = 1_024  # its slice held on the card against the CPU
+LONG_WIDEST_PAIRS = 16_384  # the kernel rows at width 1024
 TIMING_RUNS = 15
 STEP_RUNS = 51  # host-clock readings vary more than device times
 HOST_RUNS = 5  # the native functions and their plain versions, host clock
@@ -248,6 +260,19 @@ WIDE_SETTINGS = {
     ],
 }
 
+# Long free text (product descriptions, citation strings, whole addresses):
+# width 320 takes Levenshtein's lane-group form, ten lanes a pair
+LONG_SETTINGS = {
+    "link_type": "dedupe_only",
+    "blocking_rules": ["l.blk = r.blk"],
+    "comparison_columns": [
+        {"col_name": "description", "num_levels": 3, "max_string_length": 320,
+         "comparison": {"kind": "levenshtein", "thresholds": [0.3]}},
+        {"col_name": "dob", "data_type": "numeric", "num_levels": 2,
+         "comparison": {"kind": "numeric_abs", "thresholds": [1.0]}},
+    ],
+}
+
 # Every comparison kind ported last, on the main path's rows and blocking:
 # city's CASE is outside compat_sql's shapes, so the general CASE compiler
 # evaluates it, launching the dense Jaro-Winkler kernel on every pair and
@@ -282,7 +307,16 @@ for _col in TF_SETTINGS["comparison_columns"]:
 LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
 
 
+PHASE_SECONDS = {}  # phase: host seconds up to its lines, from the previous line
+_LAST_LINE = [time.perf_counter()]
+
+
 def emit(phase: str, **fields):
+    """Print one phase's line; the seconds since the previous line (or since
+    the run began) count toward ``phase`` in PHASE_SECONDS."""
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -373,6 +407,35 @@ def make_addresses(n: int, seed: int):
     for k in ("address", "employer", "notes", "dob"):
         cols[k] = cols[k].astype(object)
         cols[k][rng.random(n) < 0.02] = None
+    cols["unique_id"] = np.arange(n)
+    return pd.DataFrame(cols)
+
+
+def make_descriptions(n: int, seed: int):
+    """Seeded table of long free text: ``description`` 150-300 letters and
+    spaces (n // 4 distinct), ``dob``; ~10% planted duplicates with a
+    one-character typo in the description, ~2% nulls, ``blk`` uniform over
+    n // 32 groups."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    n_dup = n // 10
+    n_base = n - n_dup
+    k = max(n // 4, 1)
+    spaced = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    pool = np.array([chr(int(LETTERS[rng.integers(0, 26)])) + v  # no leading space
+                     for v in _pool(rng, k, 149, 299, spaced)], dtype=object)
+    cols = {"description": pool[rng.integers(0, k, n_base)],
+            "dob": rng.integers(0, 30_000, n_base).astype(np.float64),
+            "blk": rng.integers(0, max(n // 32, 1), n_base)}
+    src = rng.integers(0, n_base, n_dup)
+    for c in cols:
+        cols[c] = np.concatenate([cols[c], cols[c][src]])
+    for r in range(n_base, n):
+        cols["description"][r] = _typo(rng, cols["description"][r])
+    for c in ("description", "dob"):
+        cols[c] = cols[c].astype(object)
+        cols[c][rng.random(n) < 0.02] = None
     cols["unique_id"] = np.arange(n)
     return pd.DataFrame(cols)
 
@@ -525,18 +588,24 @@ def jw_ops_window_scan(torch, s1, l1, l2, mask=None):
 
 
 def lev_ops(torch, s1, l1, l2):
-    """The word operations of the kernel's algorithm for these inputs, per
-    pair with both sides non-empty: the shorter string (lt) steps through
-    the longer (lp); each step builds the match mask with ceil(lp / 4) SWAR
-    compares for uint8 (lp compares for 32-bit codepoints) and advances
-    ceil(lp / 32) words at 15 operations each. Every such operation is at
-    least one instruction, so this bounds the kernel's integer work from
-    below."""
+    """The word operations that Levenshtein needs on these inputs, per pair
+    with both sides non-empty: the shorter string (lt) steps through the
+    longer (lp) in ceil(lp / 32) words, 15 Myers/Hyyro operations a word and
+    step, plus the match words, built the cheaper of two ways for the pair:
+    SWAR compares at every step (ceil(lp / 4) for uint8, lp for 32-bit
+    codepoints), or a match table built once (one bit set per pattern
+    character, and for uint8 its 256 x ceil(lp / 32) words zeroed; for
+    codepoints only the pattern's characters have entries) and read once a
+    word and step. Every such operation is at least one instruction, so
+    this bounds any kernel's integer work from below; the lane-group form's
+    own bit-plane masks and skewed steps take more."""
     lt = torch.minimum(l1, l2).long()
     lp = torch.maximum(l1, l2).long()
-    compares = (lp + 3) // 4 if s1.element_size() == 1 else lp
-    per_step = compares + 15 * ((lp + 31) // 32)
-    return int(torch.where(lt > 0, lt * per_step, 0).sum())
+    words = (lp + 31) // 32
+    compares = lt * ((lp + 3) // 4 if s1.element_size() == 1 else lp)
+    table = lp + lt * words + (256 * words if s1.element_size() == 1 else 0)
+    ops = 15 * lt * words + torch.minimum(compares, table)
+    return int(torch.where(lt > 0, ops, 0).sum())
 
 
 def lev_ops_one_word(torch, s1, l1, l2):
@@ -552,10 +621,12 @@ def res_usage(cuda_tool, libs):
     every G) the registers and stack frame bytes, read from the built
     libraries with ``cuobjdump -res-usage``."""
     names = {"levenshtein_kernel": "levenshtein", "levenshtein_generic_kernel": "levenshtein",
+             "levenshtein_group_kernel": "levenshtein",
              "jaro_winkler_kernel": "jaro_winkler", "jaro_winkler_wide_kernel": "jaro_winkler",
              "jaro_winkler_group_kernel": "jaro_winkler"}
-    pat = re.compile(r"\d(levenshtein_generic_kernel|levenshtein_kernel|jaro_winkler_group_kernel|"
-                     r"jaro_winkler_wide_kernel|jaro_winkler_kernel)I([hj])(?:Li(\d+)E)?")
+    pat = re.compile(r"\d(levenshtein_generic_kernel|levenshtein_group_kernel|levenshtein_kernel|"
+                     r"jaro_winkler_group_kernel|jaro_winkler_wide_kernel|jaro_winkler_kernel)"
+                     r"I([hj])(?:Li(\d+)E)?")
     out, current = {}, None
     for path in libs.values():
         text = subprocess.run([cuda_tool("cuobjdump"), "-res-usage", path],
@@ -566,7 +637,7 @@ def res_usage(cuda_tool, libs):
                 current = None
                 if m:
                     w = m.group(3) or ("1" if m.group(1) == "jaro_winkler_kernel" else "0")
-                    form = "group" if m.group(1) == "jaro_winkler_group_kernel" else f"w{w}"
+                    form = "group" if m.group(1).endswith("_group_kernel") else f"w{w}"
                     current = f"{names[m.group(1)]}/{'u8' if m.group(2) == 'h' else 'u32'}/{form}"
             regs = re.search(r"REG:(\d+) STACK:(\d+)", line)
             if current and regs:
@@ -576,14 +647,17 @@ def res_usage(cuda_tool, libs):
 
 def measure(torch, name, plain_fn, kernel_fn, args, ops_fn, plain_runs=TIMING_RUNS):
     """Kernel vs plain version on ``args`` (s1, s2, l1, l2[, mask]):
-    equality, median times (the plain version's of ``plain_runs``), and the
-    bound: the larger of the bytes moved (inputs once, output once; with a
-    mask, the mask, the output and only the kept pairs' rows and lengths)
-    over the HBM rate and the integer operations over the INT32 rate."""
+    equality, median times (the plain version's of ``plain_runs`` calls
+    after min(3, plain_runs) warm-up calls, the equality check's the first),
+    and the bound: the larger of the bytes moved (inputs once, output once;
+    with a mask, the mask, the output and only the kept pairs' rows and
+    lengths) over the HBM rate and the integer operations over the INT32
+    rate."""
     s1, s2, l1, l2 = args[:4]
     mask = args[4] if len(args) > 4 else None
     kw = {} if mask is None else {"mask": mask}
-    got, want = kernel_fn(*args[:4], **kw), plain_fn(*args[:4], **kw)
+    got = kernel_fn(*args[:4], **kw)
+    want = plain_fn(*args[:4], **kw)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel differs from plain on {tuple(s1.shape)}")
@@ -600,7 +674,8 @@ def measure(torch, name, plain_fn, kernel_fn, args, ops_fn, plain_runs=TIMING_RU
         "ms": ms,
         "call_ms": cuda_ms(torch, lambda: kernel_fn(*args[:4], **kw), device_only=False),
         "plain_ms": cuda_ms(torch, lambda: plain_fn(*args[:4], **kw), runs=plain_runs,
-                            warmup=min(3, plain_runs), device_only=False),
+                            warmup=min(3, plain_runs) - 1, device_only=False),
+        "plain_runs": plain_runs,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "share_of_bound": max(t_bytes, t_ops) / ms,
@@ -760,42 +835,37 @@ def wide_job(torch, splink_tpu_torch, strings_cuda, native, tf, df, device="cuda
     return fields, captured
 
 
+def timed_row(torch, strings_cuda, row, paths, name, kernel, args, form, words=None,
+              plain_runs=3):
+    """``row`` for ``kernel`` on ``args`` in the variant its width takes, or
+    in ``words`` forced; its launches are the variant's (dense and masked)
+    in each of ``paths`` ({path: variant_launches}). The plain versions
+    take 0.1-10 s a call past width 32: a median of 3 by default."""
+    kind = "u8" if args[0].dtype == torch.uint8 else "u32"
+    chosen = strings_cuda.kernel_variant(kernel, args[0].shape[1], args[0].dtype)[1]
+    words = chosen if words is None else words
+    variant = strings_cuda.variant_name(kernel, kind, words)
+    counts = {path: sum(v for k, v in launched.items() if k in (variant, variant + "/masked"))
+              for path, launched in paths.items()}
+    res = f"{kernel}/{kind}/" + ("group" if words < 0 else f"w{words}")
+    return row(name, kernel, args, [res], sum(counts.values()),
+               fn=None if words == chosen else forced_form(torch, strings_cuda, kernel, words),
+               plain_runs=plain_runs, form=form, variant=variant, path_launches=counts)
+
+
 def wide_kernel_rows(torch, strings_cuda, row, gen, parity_variants, job, captured):
-    """The kernel table's rows of the forms that run past width 32: the
-    wide job's first ``notes`` batch as captured (masked, then dense on the
-    same pairs), Jaro-Winkler's W = 2, lane-group and generic forms on
-    uniform pairs of width 64, 96 and 128, the lane-group form at 128 for
-    32-bit codepoints too, and Levenshtein's generic form at width 264.
-    Raises unless the W = 2 form beats the generic one at width 64 and the
+    """The kernel table's rows of Jaro-Winkler past width 32: the wide
+    job's first ``notes`` batch as captured (masked, then dense on the same
+    pairs), the W = 2, lane-group and generic forms on uniform pairs of
+    width 64, 96 and 128, and the lane-group form at 128 for 32-bit
+    codepoints too. Raises unless the W = 2 form beats the generic one at width 64 and the
     lane-group form beats it at 96 and 128 (uint8). Each row's launches are
     the wide job's two runs and the wide parity run's."""
-    two, dense = job["two_phase"]["variant_launches"], job["dense"]["variant_launches"]
+    paths = {"wide_job_two_phase": job["two_phase"]["variant_launches"],
+             "wide_job_dense": job["dense"]["variant_launches"], "wide_parity": parity_variants}
 
-    def path_launches(variant):  # dense and masked
-        return {path: sum(v for k, v in counts.items() if k in (variant, variant + "/masked"))
-                for path, counts in (("wide_job_two_phase", two), ("wide_job_dense", dense),
-                                     ("wide_parity", parity_variants))}
-
-    def forced(kernel, words):
-        def fn(s1, s2, l1, l2, mask=None):
-            dtype = torch.int32 if kernel == "levenshtein" else torch.float32
-            out = torch.empty(s1.shape[0], dtype=dtype, device=s1.device)
-            scalars = (0.1, 0.7) if kernel == "jaro_winkler" else ()
-            return strings_cuda._launch(kernel, out, s1, s2, l1, l2, *scalars, mask=mask,
-                                        words=words)
-        return fn
-
-    # the plain versions take 0.1-1 s a call at these widths: median of 3
-    def timed(name, kernel, args, form, words=None, plain_runs=3, **extra):
-        kind = "u8" if args[0].dtype == torch.uint8 else "u32"
-        chosen = strings_cuda.kernel_variant(kernel, args[0].shape[1], args[0].dtype)[1]
-        words = chosen if words is None else words
-        variant = strings_cuda.variant_name(kernel, kind, words)
-        counts = path_launches(variant)
-        res = f"{kernel}/{kind}/" + ("group" if words < 0 else f"w{words}")
-        return row(name, kernel, args, [res], sum(counts.values()),
-                   fn=None if words == chosen else forced(kernel, words), plain_runs=plain_runs,
-                   form=form, variant=variant, path_launches=counts, **extra)
+    def timed(*a, **kw):
+        return timed_row(torch, strings_cuda, row, paths, *a, **kw)
 
     group = job["group_variant"]
     notes = captured[group + "/masked"]
@@ -833,11 +903,140 @@ def wide_kernel_rows(torch, strings_cuda, row, gen, parity_variants, job, captur
     out.append(timed("jaro_winkler/group_w128_u32", "jaro_winkler", wide128,
                      "lane-group, dense: uniform pairs of width 128, 32-bit codepoints"))
     del wide128
-    for wide in (False, True):
-        pairs = random_pairs(torch, WIDE_CHECK_PAIRS, 264, wide, gen)
+    return out
+
+
+def forced_form(torch, strings_cuda, kernel, words):
+    """``kernel``'s wrapper with the variant forced to ``words`` (0 the
+    generic form, -G the lane-group form with G lanes a pair)."""
+    def fn(s1, s2, l1, l2, mask=None):
+        dtype = torch.int32 if kernel == "levenshtein" else torch.float32
+        out = torch.empty(s1.shape[0], dtype=dtype, device=s1.device)
+        scalars = (0.1, 0.7) if kernel == "jaro_winkler" else ()
+        return strings_cuda._launch(kernel, out, s1, s2, l1, l2, *scalars, mask=mask,
+                                    words=words)
+    return fn
+
+
+def long_text_job(torch, splink_tpu_torch, strings, strings_cuda, native, tf, df,
+                  device="cuda"):
+    """The long-text column at full size: LONG_SETTINGS on ``df``, training
+    only (``estimate_parameters``: encode, blocking, gammas, EM). Raises
+    unless the run went through the device tier, every batch launched
+    Levenshtein's lane-group form with ten lanes a pair (width 320) and no
+    other Levenshtein form, and the first batch's distances, captured,
+    equal the plain version's and the generic form's (forced) on the card.
+    Returns the phase's fields and the first batch. On the CPU
+    (``device="cpu"``, a rehearsal) the gates on launches are skipped."""
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    zero_counts(strings_cuda, native, tf)
+    strings_cuda.capture = {}
+    sync()
+    t0 = time.perf_counter()
+    lk = splink_tpu_torch.Splink(json.loads(json.dumps(LONG_SETTINGS)), df=df, device=device)
+    lk.estimate_parameters()
+    sync()
+    wall = time.perf_counter() - t0
+    variants = dict(strings_cuda.variant_launches)
+    captured, strings_cuda.capture = strings_cuda.capture, None
+    pairs = int(lk._pairs.n_pairs)
+    batches = -(-pairs // int(lk.settings["pair_batch_size"]))
+    width = lk._table.strings["description"].width
+    group = strings_cuda.variant_name("levenshtein", "u8", strings_cuda.kernel_variant(
+        "levenshtein", width, torch.uint8)[1])
+    fields = {"rows": len(df), "pairs": pairs, "batches": batches, "width": width,
+              "variant": group, "wall_s": wall, "stage_s": dict(lk.stage_seconds),
+              "variant_launches": variants, "em_updates": len(lk.params.param_history),
+              "lambda": float(lk.params.params["λ"])}
+    if not on_card:
+        return fields, None
+    check_path_counts("the long-text job", strings_cuda, native, kernels=["levenshtein"])
+    if group != "levenshtein/u8/g10" or variants != {group: batches}:
+        raise AssertionError(f"the long-text job launched {variants}, expected {batches} "
+                             "launches of levenshtein/u8/g10 and nothing else")
+    first = captured[group]
+    got = strings_cuda.levenshtein_cuda(*first)
+    plain = strings.levenshtein_plain(*first)
+    generic = forced_form(torch, strings_cuda, "levenshtein", 0)(*first)
+    torch.cuda.synchronize()
+    for name, want in (("plain version", plain), ("generic form", generic)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"the long-text job's first batch: the lane-group form differs "
+                                 f"from the {name} on {int((got != want).sum())} pairs")
+    lt = torch.minimum(first[2], first[3])
+    fields["first_batch"] = {"pairs": int(first[0].shape[0]), "mean_text_length":
+                             float(lt.double().mean()), "equal_plain": True,
+                             "equal_generic": True}
+    return fields, first
+
+
+def long_text_parity(splink_tpu_torch, strings_cuda, df):
+    """LONG_SETTINGS on the blocks of ``df`` below LONG_PARITY_ROWS / 32
+    (about LONG_PARITY_ROWS rows) on the card and on the CPU: equal pairs
+    and gamma matrices, probabilities and parameters within 1e-5 (the
+    ``wide`` phase's tolerance), the card through the lane-group form only.
+    Returns the phase's fields and the card's variant launches."""
+    sub = df[df["blk"] < LONG_PARITY_ROWS // 32].reset_index(drop=True)
+    t0 = time.perf_counter()
+    gpu, _, cpu, dp, variants = cuda_vs_cpu(splink_tpu_torch, strings_cuda, LONG_SETTINGS, sub)
+    seconds = time.perf_counter() - t0
+    if set(k for k in variants if k.startswith("levenshtein/")) != {"levenshtein/u8/g10"}:
+        raise AssertionError(f"the long-text parity run launched {variants}")
+    dparams = max(float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+                  for a, b in zip(gpu.params.to_arrays()[:3], cpu.params.to_arrays()[:3]))
+    if dparams > 1e-5:
+        raise AssertionError(f"the long-text parameters differ by {dparams} between cuda and cpu")
+    return {"rows": len(sub), "pairs": int(gpu._pairs.n_pairs), "gamma_equal": True,
+            "max_abs_dp": dp["match_probability"], "max_abs_dparams": dparams,
+            "cpu_gammas_s": cpu.stage_seconds.get("gammas"), "seconds": seconds,
+            "variant_launches": variants}, variants
+
+
+def group_occupancy():
+    """Per lane count G of Levenshtein's lane-group form (widths 257-1024,
+    G = 9..32): its widths, pairs a warp and the share of a warp's lanes
+    that hold a pair."""
+    return {f"g{g}": {"widths": [32 * g - 31, 32 * g], "pairs_per_warp": 32 // g,
+                      "lane_share": (32 // g) * g / 32} for g in range(9, 33)}
+
+
+def long_kernel_rows(torch, strings_cuda, row, gen, job, first, parity_variants):
+    """The kernel table's rows of Levenshtein past width 256: the long-text
+    job's first batch as captured (1,048,576 x 320, g10); the lane-group
+    form beside the generic form (forced) on the same uniform pairs at
+    100,000 x 264 (u8, u32) and x 512 (u8); the lane-group form at 16,384 x
+    1024 (u8, u32). Raises unless the lane-group form beats the generic one
+    at 264 and 512. Each row's launches are the long-text job's and its
+    parity run's. The plain version takes 1-16 s a call here: one call
+    after the equality check's."""
+    paths = {"long_text": job["variant_launches"], "long_text_parity": parity_variants}
+
+    def timed(name, args, form, words=None):
+        return timed_row(torch, strings_cuda, row, paths, name, "levenshtein", args, form,
+                         words=words, plain_runs=1)
+
+    out = [timed("levenshtein/long_text_description", first,
+                 f"{job['variant'].split('/')[2]}: the long-text job's first description batch "
+                 "(width 320, lengths 150-300)")]
+    for width, wide in ((264, False), (264, True), (512, False)):
+        pairs = random_pairs(torch, WIDE_CHECK_PAIRS, width, wide, gen)
         kind = "u32" if wide else "u8"
-        out.append(timed(f"levenshtein/generic_w264_{kind}", "levenshtein", pairs,
-                         f"w0 (generic), uniform pairs of width 264, {kind}"))
+        new = timed(f"levenshtein/group_w{width}_{kind}", pairs,
+                    f"lane-group, uniform pairs of width {width}, {kind}")
+        old = timed(f"levenshtein/generic_w{width}_{kind}", pairs,
+                    "w0 (generic, forced; past width 1024 only), the same pairs", words=0)
+        if not new["ms"] < old["ms"]:
+            raise AssertionError(f"the lane-group form ({new['ms']} ms) is not faster than the "
+                                 f"generic one ({old['ms']} ms) at width {width}, {kind}")
+        new["speedup_over_generic"] = old["ms"] / new["ms"]
+        out += [new, old]
+        del pairs
+    for wide in (False, True):
+        pairs = random_pairs(torch, LONG_WIDEST_PAIRS, 1024, wide, gen)
+        kind = "u32" if wide else "u8"
+        out.append(timed(f"levenshtein/group_w1024_{kind}", pairs,
+                         f"lane-group, {LONG_WIDEST_PAIRS} uniform pairs of width 1024, {kind}"))
         del pairs
     return out
 
@@ -907,15 +1106,15 @@ def zero_counts(strings_cuda, native, tf):
     tf.device_aggregations.clear()
 
 
-def check_path_counts(what, strings_cuda, native, tier="device"):
-    """Raise unless the path just driven launched every CUDA kernel, went
-    through the native library for its encode, and blocked once through
-    ``tier``: the device sort-join tier, or the host join (whose self join
-    is the native library's)."""
+def check_path_counts(what, strings_cuda, native, tier="device", kernels=None):
+    """Raise unless the path just driven launched every CUDA kernel (each
+    of ``kernels`` where given), went through the native library for its
+    encode, and blocked once through ``tier``: the device sort-join tier,
+    or the host join (whose self join is the native library's)."""
     from splink_tpu_torch import blocking
 
-    for k, v in strings_cuda.launches.items():
-        if v <= 0:
+    for k in kernels or strings_cuda.launches:
+        if strings_cuda.launches[k] <= 0:
             raise AssertionError(f"{what} launched no {k} kernel")
     if native.calls["encode_fixed_width"] <= 0:
         raise AssertionError(f"{what} did not call the native encode_fixed_width")
@@ -4296,7 +4495,7 @@ def approx_phase(torch, splink_tpu_torch, strings_cuda, native, tf, out_dir):
 
 
 def main() -> int:
-    t_run = time.perf_counter()
+    t_run = _LAST_LINE[0] = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4335,7 +4534,10 @@ def main() -> int:
     usage = res_usage(strings_cuda.cuda_tool, libs)
     emit("build", seconds=build_s,
          libraries={k: os.path.relpath(v) for k, v in libs.items()},
-         flags=strings_cuda.NVCC_FLAGS, res_usage=usage)
+         flags=strings_cuda.NVCC_FLAGS, res_usage=usage,
+         lane_group_registers={f"{name}/{k}": usage.get(f"{name}/{k}/group", {}).get("registers")
+                               for name in strings_cuda.GROUP_LANES for k in ("u8", "u32")},
+         levenshtein_group_occupancy=group_occupancy())
     for name, variants in strings_cuda.VARIANT_WORDS.items():
         forms = [f"w{w}" for w in (*variants, 0)]
         forms += ["group"] if name in strings_cuda.GROUP_LANES else []
@@ -4343,7 +4545,8 @@ def main() -> int:
             for kind in ("u8", "u32"):
                 if f"{name}/{kind}/{form}" not in usage:
                     raise AssertionError(f"cuobjdump reports no {name}/{kind}/{form}: {usage}")
-    zero_frames = [f"levenshtein/u8/w{w}" for w in strings_cuda.VARIANT_WORDS["levenshtein"]]
+    zero_frames = [f"levenshtein/u8/{f}" for f in
+                   [f"w{w}" for w in strings_cuda.VARIANT_WORDS["levenshtein"]] + ["group"]]
     zero_frames += [f"jaro_winkler/{k}/{f}" for f in ("w1", "w2", "group") for k in ("u8", "u32")]
     for variant in zero_frames:
         frame = usage[variant]["stack_bytes"]
@@ -4589,7 +4792,7 @@ def main() -> int:
              "this_kernel": jw_ops(torch, jw_batch[0], *jw_batch[2:4], mask=surv),
              "window_scan_count": jw_ops_window_scan(torch, jw_batch[0], *jw_batch[2:4],
                                                      mask=surv)},
-         levenshtein_int_ops={"this_kernel": lev_ops(torch, s1, l1, l2),
+         levenshtein_int_ops={"needed": lev_ops(torch, s1, l1, l2),
                               "one_word_count": lev_ops_one_word(torch, s1, l1, l2)})
 
     # -- the whole two-phase step of one column on the first batch, masked
@@ -4656,8 +4859,26 @@ def main() -> int:
     wjob, wcap = wide_job(torch, splink_tpu_torch, strings_cuda, native, tf, big_wide)
     del big_wide
     emit("wide_job", data_gen_s=wide_gen_s, **wjob)
-    rows[3:3] = wide_kernel_rows(torch, strings_cuda, row, gen, wide_variants, wjob, wcap)
+    wide_rows = wide_kernel_rows(torch, strings_cuda, row, gen, wide_variants, wjob, wcap)
     del wcap
+    emit("wide_kernel_rows", rows=[r["name"] for r in wide_rows])
+
+    # -- long free text at full size: a Levenshtein column of width 320
+    # -- (the lane-group form), training only; its slice on the card and
+    # -- the CPU
+    t0 = time.perf_counter()
+    long_df = make_descriptions(LONG_JOB_ROWS, SEED + 2)
+    long_gen_s = time.perf_counter() - t0
+    ljob, lfirst = long_text_job(torch, splink_tpu_torch, strings, strings_cuda, native, tf,
+                                 long_df)
+    emit("long_text", data_gen_s=long_gen_s, **ljob)
+    lparity, lparity_variants = long_text_parity(splink_tpu_torch, strings_cuda, long_df)
+    del long_df
+    emit("long_text_parity", **lparity)
+    long_rows = long_kernel_rows(torch, strings_cuda, row, gen, ljob, lfirst, lparity_variants)
+    del lfirst
+    emit("long_kernel_rows", rows=[r["name"] for r in long_rows])
+    rows[3:3] = wide_rows + long_rows
 
     # -- model JSON round trip on the card ------------------------------------
     path = os.path.join(out_dir, "model.json")
@@ -4867,7 +5088,8 @@ def main() -> int:
     # -- every regime on the card at the subset's size -----------------------
     emit("regimes_parity", **regimes_parity(splink_tpu_torch, resilience, sub, out_dir))
 
-    emit("wall", seconds=time.perf_counter() - t_run, nvidia_smi=smi)
+    emit("wall", seconds=time.perf_counter() - t_run, nvidia_smi=smi,
+         phase_seconds=dict(PHASE_SECONDS))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,11 @@
 // gathered subset), orders its pairs by one length with a counting sort
 // (exclusive_scan_bins), and each thread holds one side of its pair in
 // registers (Pattern), compared with a broadcast character four bytes at
-// a time (eq4).
+// a time (eq4). The lane-group forms (variant -G, G lanes of a warp a
+// pair, widths up to 1024) stage and order the same way with one prologue
+// (stage_group_block on a StagedLayout), find their pair with GroupLane
+// and are launched by launch_group in blocks sized by group_threads, each
+// lane holding 32 positions of one side.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(), so a refused launch is reported to the caller.
@@ -27,6 +31,9 @@
 namespace splink {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xFFFFFFFFu;  // every lane of a warp
+constexpr int kMaxSmem = 227 * 1024;     // a block's shared memory, with the opt-in
+constexpr int kGroupTiles = 32 * 1024;   // the lane-group forms' staged rows, a block
 
 // Pairs per thread in the staged kernels: a block stages kRows *
 // blockDim.x rows at once, so it pays its load latency and its barriers
@@ -47,6 +54,43 @@ inline int threads_for(int rowbytes) {
   if (rowbytes <= 128) return 64;
   return 32;
 }
+
+// Threads of a lane-group block (`groups` pairs a warp, one row of each
+// side a pair staged): 256, halved (down to one warp) while the staged
+// rows pass kGroupTiles.
+inline int group_threads(int rowbytes, int groups) {
+  int threads = kThreads;
+  while (threads > 32 && 2 * (threads / 32) * groups * rowbytes > kGroupTiles) threads >>= 1;
+  return threads;
+}
+
+// Opt a kernel into more than the default 48 KB of dynamic shared memory.
+template <typename K>
+int allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+// Shared memory of a staged block of `rows` pairs (Jaro-Winkler's forms,
+// Levenshtein's lane-group form): the two tiles (each with slack, 16-byte
+// aligned); per slot (a pair, or a survivor of a masked launch, in row
+// order) both lengths, its row in the block and its place in the order;
+// the counting sort's histogram over one length 0..width; per 32 rows the
+// survivor count, then their total (masked launches only).
+struct StagedLayout {
+  int tile, len1, len2, rowid, order, hist, counts, bytes;
+  __host__ __device__ StagedLayout(int rows, int rowbytes, int width) {
+    tile = (rows * rowbytes + kSlack + 15) & ~15;
+    len1 = 2 * tile;
+    len2 = len1 + 4 * rows;
+    rowid = len2 + 4 * rows;
+    order = rowid + 4 * rows;
+    hist = order + 4 * rows;
+    counts = hist + 4 * (width + 1);
+    bytes = counts + 4 * ((rows + 31) / 32 + 1);
+  }
+};
 
 // One 16-byte asynchronous copy global -> shared (Ampere and later).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -132,6 +176,91 @@ __device__ __forceinline__ void exclusive_scan_bins(int* hist, int bins) {
       base += c;
     }
   }
+}
+
+// The lane-group forms' prologue, run by the whole block on its
+// StagedLayout: stages slots 0 .. count) (rows rowid[slot] of g1 and g2
+// where a masked launch compacted them, else rows 0 .. count)) into the
+// two tiles, keeps both lengths of each slot in len1 / len2 as given, and
+// orders the slots by the shorter length clamped to [0, width] with the
+// counting sort, so that the groups of a warp take about as many steps.
+// count <= blockDim.x, so a thread sorts at most one slot. Returns with
+// the tiles landed and the block synchronised.
+__device__ __forceinline__ void stage_group_block(unsigned char* smem, const StagedLayout& lay,
+                                                  const unsigned char* g1,
+                                                  const unsigned char* g2, const int32_t* l1p,
+                                                  const int32_t* l2p, int64_t first,
+                                                  const int* rowid, int count, int rowbytes,
+                                                  int width) {
+  int* len1 = reinterpret_cast<int*>(smem + lay.len1);
+  int* len2 = reinterpret_cast<int*>(smem + lay.len2);
+  int* order = reinterpret_cast<int*>(smem + lay.order);
+  int* hist = reinterpret_cast<int*>(smem + lay.hist);
+  const int tid = threadIdx.x;
+  for (int k = tid; k <= width; k += blockDim.x) hist[k] = 0;
+  if (rowid != nullptr) {
+    stage_rows(smem, g1, rowid, count, rowbytes);
+    stage_rows(smem + lay.tile, g2, rowid, count, rowbytes);
+  } else {
+    stage_tile(smem, g1, count * rowbytes);
+    stage_tile(smem + lay.tile, g2, count * rowbytes);
+  }
+  __syncthreads();  // the histogram is zeroed
+  int key = 0;
+  int rank = 0;
+  if (tid < count) {
+    const int64_t row = first + (rowid != nullptr ? rowid[tid] : tid);
+    const int a = l1p[row];
+    const int b = l2p[row];
+    len1[tid] = a;
+    len2[tid] = b;
+    key = min(max(min(a, b), 0), width);
+    rank = atomicAdd(&hist[key], 1);
+  }
+  __syncthreads();
+  exclusive_scan_bins(hist, width + 1);
+  __syncthreads();
+  if (tid < count) order[hist[key] + rank] = tid;
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// A lane of a lane-group block, `lanes` lanes a pair: its group (the gw-th
+// of its warp, lanes gbase .. gbase + lanes - 1), its place l in the group
+// and the slot of the group's pair, the block's (warp * floor(32 / lanes) +
+// gw)-th shortest; -1 for the lanes past the warp's last whole group and
+// for groups past the block's `count` slots.
+struct GroupLane {
+  int gbase, l, slot;
+  __device__ __forceinline__ GroupLane(int lanes, const int* order, int count) {
+    const int lane = threadIdx.x & 31;
+    const int groups = 32 / lanes;
+    const int gw = lane / lanes;
+    const int k = static_cast<int>(threadIdx.x >> 5) * groups + gw;
+    gbase = gw * lanes;
+    l = lane - gbase;
+    slot = gw < groups && k < count ? order[k] : -1;
+  }
+};
+
+// Pairs of a lane-group block of blockDim.x threads.
+__device__ __forceinline__ int group_block_pairs(int lanes) {
+  return static_cast<int>(blockDim.x >> 5) * (32 / lanes);
+}
+
+// Launches a lane-group kernel over n pairs in blocks of group_threads,
+// with its StagedLayout's shared memory; `args` are the kernel's own.
+template <typename K, typename... Args>
+int launch_group(K kernel, int64_t n, int rowbytes, int width, int lanes, cudaStream_t stream,
+                 Args... args) {
+  const int groups = 32 / lanes;
+  const int threads = group_threads(rowbytes, groups);
+  const int per_block = threads / 32 * groups;
+  const int smem = StagedLayout(per_block, rowbytes, width).bytes;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int e = allow_smem(kernel, smem)) return e;
+  kernel<<<grid_for(n, per_block), threads, smem, stream>>>(args...);
+  return 0;
 }
 
 // The four bytes at smem + off as one little-endian word, for any `off`:

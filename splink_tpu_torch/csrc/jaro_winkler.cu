@@ -106,10 +106,6 @@
 namespace splink {
 namespace {
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kMaxSmem = 227 * 1024;     // a block's shared memory, with the opt-in
-constexpr int kGroupTiles = 32 * 1024;   // the lane-group form's staged rows, a block
-
 // (m/l1 + m/l2 + (m - t)/m) / 3, then jaro + ell*scale*(1 - jaro), in the
 // reference's order of operations
 __device__ __forceinline__ float jw_value(int m, int mismatched, int ell, int l1, int l2,
@@ -249,25 +245,6 @@ __device__ __forceinline__ float jw_pair(const Pattern<T, W>& pat, const unsigne
   return jw_value(m, mismatched, ell, l1, l2, lb, prefix_scale, boost_threshold);
 }
 
-// Shared memory of a staged block of `rows` pairs: the two tiles (each
-// with slack, 16-byte aligned); per slot (a survivor, in row order) both
-// lengths, its row in the block and its place in the order; the counting
-// sort's histogram over the shorter length 0..width; per 32 rows the
-// survivor count, then their total.
-struct Layout {
-  int tile, len1, len2, rowid, order, hist, counts, bytes;
-  __host__ __device__ Layout(int rows, int rowbytes, int width) {
-    tile = (rows * rowbytes + kSlack + 15) & ~15;
-    len1 = 2 * tile;
-    len2 = len1 + 4 * rows;
-    rowid = len2 + 4 * rows;
-    order = rowid + 4 * rows;
-    hist = order + 4 * rows;
-    counts = hist + 4 * (width + 1);
-    bytes = counts + 4 * ((rows + 31) / 32 + 1);
-  }
-};
-
 // The block's survivors under `mask`, for the rows [first, first + rows)
 // of a block of `per_block` (<= 1024, at most R * blockDim.x) rows:
 // writes 0 to the rows the mask drops and the in-block indices of the
@@ -327,7 +304,7 @@ __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restric
   extern __shared__ __align__(16) unsigned char smem[];
   const int rowbytes = width * static_cast<int>(sizeof(T));
   const int per_block = kRows * blockDim.x;
-  const Layout lay(per_block, rowbytes, width);
+  const StagedLayout lay(per_block, rowbytes, width);
   unsigned char* t1 = smem;
   unsigned char* t2 = smem + lay.tile;
   int* len1 = reinterpret_cast<int*>(smem + lay.len1);
@@ -439,67 +416,33 @@ __global__ void jaro_winkler_group_kernel(const T* __restrict__ s1, const T* __r
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kEl = static_cast<int>(sizeof(T));
   const int rowbytes = width * kEl;
-  const int groups = 32 / lanes;  // per warp
-  const int per_block = static_cast<int>(blockDim.x >> 5) * groups;
-  const Layout lay(per_block, rowbytes, width);
+  const int per_block = group_block_pairs(lanes);
+  const StagedLayout lay(per_block, rowbytes, width);
   unsigned char* t1 = smem;
   unsigned char* t2 = smem + lay.tile;
-  int* len1 = reinterpret_cast<int*>(smem + lay.len1);
-  int* len2 = reinterpret_cast<int*>(smem + lay.len2);
+  const int* len1 = reinterpret_cast<const int*>(smem + lay.len1);
+  const int* len2 = reinterpret_cast<const int*>(smem + lay.len2);
   int* rowid = reinterpret_cast<int*>(smem + lay.rowid);
-  int* order = reinterpret_cast<int*>(smem + lay.order);
-  int* hist = reinterpret_cast<int*>(smem + lay.hist);
   int* counts = reinterpret_cast<int*>(smem + lay.counts);
-  const int tid = threadIdx.x;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * per_block;
   const int rows = n - first < per_block ? static_cast<int>(n - first) : per_block;
-  const unsigned char* g1 = reinterpret_cast<const unsigned char*>(s1) + first * rowbytes;
-  const unsigned char* g2 = reinterpret_cast<const unsigned char*>(s2) + first * rowbytes;
-  for (int k = tid; k <= width; k += blockDim.x) hist[k] = 0;
 
   int count = rows;
   if (mask != nullptr) {
     count = compact_survivors<1>(mask, first, rows, per_block, counts, rowid, out);
     if (count == 0) return;
-    stage_rows(t1, g1, rowid, count, rowbytes);
-    stage_rows(t2, g2, rowid, count, rowbytes);
-  } else {
-    stage_tile(t1, g1, rows * rowbytes);
-    stage_tile(t2, g2, rows * rowbytes);
-    __syncthreads();  // the histogram is zeroed
   }
+  stage_group_block(smem, lay, reinterpret_cast<const unsigned char*>(s1) + first * rowbytes,
+                    reinterpret_cast<const unsigned char*>(s2) + first * rowbytes, l1p, l2p,
+                    first, mask != nullptr ? rowid : nullptr, count, rowbytes, width);
 
-  // lengths and the counting sort by the shorter length; per_block <=
-  // blockDim.x, so a thread sorts at most one slot
-  int key = 0;
-  int rank = 0;
-  if (tid < count) {
-    const int64_t row = first + (mask != nullptr ? rowid[tid] : tid);
-    const int a = l1p[row];
-    const int b = l2p[row];
-    len1[tid] = a;
-    len2[tid] = b;
-    key = min(max(min(a, b), 0), width);
-    rank = atomicAdd(&hist[key], 1);
-  }
-  __syncthreads();
-  exclusive_scan_bins(hist, width + 1);
-  __syncthreads();
-  if (tid < count) order[hist[key] + rank] = tid;
-  cp_async_wait_all();
-  __syncthreads();
-
-  // this lane's group (gw-th of its warp, lanes gbase .. gbase + lanes - 1)
-  // and its place l in it; lanes past the last whole group hold no pair
-  const int lane = tid & 31;
-  const int gw = lane / lanes;
-  const int gbase = gw * lanes;
-  const int l = lane - gbase;
+  const GroupLane g(lanes, reinterpret_cast<const int*>(smem + lay.order), count);
+  const int gbase = g.gbase;
+  const int l = g.l;
+  const int slot = g.slot;
   // in a ballot: the group's lanes, and those below this one
   const uint32_t group_bits = (lanes >= 32 ? kFull : (1u << lanes) - 1u) << gbase;
   const uint32_t lower_bits = ((1u << l) - 1u) << gbase;
-  const int k = (tid >> 5) * groups + gw;  // the group's pair, by shorter length
-  const int slot = gw < groups && k < count ? order[k] : -1;
   const int l1 = slot >= 0 ? len1[slot] : 0;
   const int l2 = slot >= 0 ? len2[slot] : 0;
   const bool swap = l1 > l2;
@@ -679,45 +622,17 @@ __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __re
   out[p] = jw_value(m, mismatched, ell, l1, l2, lb, prefix_scale, boost_threshold);
 }
 
-// Opt a kernel into more than the default 48 KB of dynamic shared memory.
-template <typename K>
-int allow_smem(K kernel, int smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-}
-
 template <typename T, int W>
 int launch_words(const T* a, const T* b, const int32_t* la, const int32_t* lb, const bool* mk,
                  int64_t n, int width, float prefix_scale, float boost_threshold, float* o,
                  cudaStream_t stream) {
   const int rowbytes = width * static_cast<int>(sizeof(T));
   const int threads = threads_for(rowbytes);
-  const int smem = Layout(kRows * threads, rowbytes, width).bytes;
+  const int smem = StagedLayout(kRows * threads, rowbytes, width).bytes;
   auto kernel = jaro_winkler_kernel<T, W>;
   if (const int e = allow_smem(kernel, smem)) return e;
   kernel<<<grid_for(n, kRows * threads), threads, smem, stream>>>(
       a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o);
-  return 0;
-}
-
-// The lane-group form: 256 threads a block, halved (down to one warp)
-// while the staged rows pass kGroupTiles.
-template <typename T>
-int launch_group(const T* a, const T* b, const int32_t* la, const int32_t* lb, const bool* mk,
-                 int64_t n, int width, int lanes, float prefix_scale, float boost_threshold,
-                 float* o, cudaStream_t stream) {
-  const int rowbytes = width * static_cast<int>(sizeof(T));
-  const int groups = 32 / lanes;
-  int threads = kThreads;
-  while (threads > 32 && 2 * (threads / 32) * groups * rowbytes > kGroupTiles) threads >>= 1;
-  const int per_block = threads / 32 * groups;
-  const int smem = Layout(per_block, rowbytes, width).bytes;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = jaro_winkler_group_kernel<T>;
-  if (const int e = allow_smem(kernel, smem)) return e;
-  kernel<<<grid_for(n, per_block), threads, smem, stream>>>(
-      a, b, la, lb, mk, n, width, lanes, prefix_scale, boost_threshold, o);
   return 0;
 }
 
@@ -750,8 +665,9 @@ int launch(const void* s1, const void* s2, const void* l1, const void* l2, const
   const bool* mk = static_cast<const bool*>(mask);
   float* o = static_cast<float*>(out);
   if (words < 0)
-    return launch_group<T>(a, b, la, lb, mk, n, width, -words, prefix_scale, boost_threshold,
-                           o, stream);
+    return launch_group(jaro_winkler_group_kernel<T>, n, width * static_cast<int>(sizeof(T)),
+                        width, -words, stream, a, b, la, lb, mk, n, width, -words,
+                        prefix_scale, boost_threshold, o);
   switch (words) {
     case 1:
       return launch_words<T, 1>(a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o,

@@ -1,22 +1,32 @@
-// Batched Levenshtein distance for Hopper (sm_90a), one pair per thread.
+// Batched Levenshtein distance for Hopper (sm_90a).
 //
 // Replaces splink_tpu/ops/strings_pallas.py:levenshtein_pallas (body
 // _lev_kernel), which lays pairs on the TPU's vector lanes and runs the row
-// DP with a prefix-min insertion chain. Here each thread runs the
-// Myers/Hyyro bit-parallel DP on a pair: the longer string (the pattern)
-// lies along the bits of W 32-bit words, the shorter (the text) is consumed
-// one character per step, and each step advances the words in order,
-// carrying the horizontal delta from word to word (Hyyro's blocked form).
-// After the last step the distance is the text's length plus the vertical
-// deltas of the pattern's rows, two popcounts a word. The result equals
-// splink_tpu's row DP (ops/strings.py:levenshtein_single) on every input:
-// distance is symmetric, so which side is the pattern does not change it.
+// DP with a prefix-min insertion chain. Here every form runs the
+// Myers/Hyyro bit-parallel DP: the longer string (the pattern) lies along
+// the bits of ceil(width / 32) 32-bit words, the shorter (the text) is
+// consumed one character per step, and each step advances the words in
+// order, carrying the horizontal delta from word to word (Hyyro's blocked
+// form). After the last step the distance is the text's length plus the
+// vertical deltas of the pattern's rows, two popcounts a word. The result
+// equals splink_tpu's row DP (ops/strings.py:levenshtein_single) on every
+// input: distance is symmetric, so which side is the pattern does not
+// change it.
 //
 // What bounds it on this card: a pair is 2L bytes of characters, 8 bytes of
-// lengths and 4 bytes out, against about l_text * (ceil(l_pat / 4) SWAR
-// compares + 15 * ceil(l_pat / 32) word operations) of integer work, so at
-// the widths of real columns (L = 16..32) HBM bounds it if the integer work
-// stays in registers and no lane of a warp idles. What the design does:
+// lengths and 4 bytes out, against the integer work Levenshtein needs
+// (chip_smoke.py's lev_ops): l_text steps of 15 word operations for each
+// of ceil(l_pat / 32) words, plus the match words, the cheaper of SWAR
+// compares at every step (ceil(l_pat / 4) a step for uint8, l_pat for
+// 32-bit codepoints) and a match table built once a pair and read once a
+// word and step. At the widths of real name columns (L = 16..32) the
+// bytes bound it; past a few words the integer work grows with l_text *
+// l_pat and bounds it instead. The lane-group form below does more than
+// that count: its bit-plane masks take about 19 instructions a word and
+// step against the table's one load, and the skew adds ceil(l_pat / 32) -
+// 1 steps a pair.
+//
+// Fixed forms, W = 1, 2, 4, 8 (widths up to 256), one pair per thread:
 //
 //   * the block's rows (two pairs per thread) of s1 and of s2 are two
 //     contiguous tiles; both are staged into shared memory with coalesced
@@ -37,11 +47,42 @@
 //     pattern reaches, a count fixed at compile time per warp, so no guard
 //     runs per step.
 //
-// Within a block the loads and the DP do not overlap; PERF.md has what
-// that costs against the bound.
+// Lane-group form, widths 257 to 1024 (and any width when forced): G =
+// ceil(width / 32) lanes of a warp share one pair, floor(32 / G) pairs a
+// warp (three at G = 9 and 10, 5 and 2 lanes idle; one from G = 17). One
+// thread a pair at these widths would hold 8G words of pattern and 2G of
+// deltas; the generic form below, which kept the deltas in global scratch
+// and compared one character a load, reached 2-3% of its bound (PERF.md).
+// Here:
 //
-// Columns wider than 256 take the generic variant: W at run time, the
-// words of each pair in the caller's scratch, characters read from global
+//   * rows are staged and the block's pairs ordered by text length as in
+//     the fixed forms, so the groups of a warp take about as many steps;
+//   * lane l owns pattern rows [32l, 32l + 32) and their vertical deltas
+//     pv, mv, all in registers; nothing of a pair goes to global memory
+//     but its distance;
+//   * the words are skewed along the anti-diagonal: at step t lane l
+//     advances its word over text column t - l, with the horizontal delta
+//     that lane l - 1 produced for that column one step earlier, handed on
+//     by one __shfl_up_sync a step (lane 0 of a group takes +1, the top
+//     row). A pair takes l_text + ceil(l_pat / 32) - 1 steps and the loop
+//     runs to the warp's longest, so every lane reaches every shuffle; a
+//     lane outside its columns keeps its words;
+//   * uint8 match masks: eq4 costs about 8 instructions per four
+//     characters, 64 a word and step against the advance's 15, so with it
+//     the compares would bound the step. Each lane instead holds its 32
+//     characters as 8 bit planes (plane k: bit k of each character), and
+//     the mask of text character c is the AND over k of plane k or its
+//     complement as bit k of c says: 8 three-input logic operations, with
+//     the 8 all-ones-or-zero selectors made by two multiplies and eight
+//     sign-replicating byte permutes. The text character rides down the
+//     group in the delta's shuffle, so only lane 0 reads the staged text.
+//     32-bit codepoints compare per position from registers and each lane
+//     reads its text character from the staged row;
+//   * the distance: each lane counts its rows below l_pat, and a shuffle
+//     sum over the group adds them to the text length.
+//
+// Columns wider than 1024 take the generic form: W at run time, the words
+// of each pair in the caller's scratch, characters read from global
 // memory, no staging or ordering. No width is refused.
 //
 // Build (nvcc, plain C interface, loaded with ctypes):
@@ -56,21 +97,30 @@ namespace {
 // One word of the blocked Myers/Hyyro step (the form of Hyyro 2003 that
 // edlib implements): advances the vertical deltas (pv, mv) of 32 pattern
 // rows by one text column, given the match mask `eq` and the horizontal
-// delta `hin` (-1, 0, +1) entering the word's top row. Returns the
-// horizontal delta leaving its bottom row (bit 31), for the next word.
-__device__ __forceinline__ int advance(uint32_t& pv, uint32_t& mv, uint32_t eq, int hin) {
-  const uint32_t hneg = hin < 0 ? 1u : 0u;
+// delta entering the word's top row as two bits (hpos: +1, hneg: -1;
+// neither: 0). Sets the bits of the delta leaving its bottom row (bit 31),
+// for the next word.
+__device__ __forceinline__ void advance_bits(uint32_t& pv, uint32_t& mv, uint32_t eq,
+                                             uint32_t hpos, uint32_t hneg, uint32_t& opos,
+                                             uint32_t& oneg) {
   const uint32_t xv = eq | mv;
   eq |= hneg;
   const uint32_t xh = (((eq & pv) + pv) ^ pv) | eq;
   uint32_t ph = mv | ~(xh | pv);
   uint32_t mh = pv & xh;
-  const int hout = static_cast<int>(ph >> 31) - static_cast<int>(mh >> 31);
-  ph = (ph << 1) | (hin > 0 ? 1u : 0u);
+  opos = ph >> 31;
+  oneg = mh >> 31;
+  ph = (ph << 1) | hpos;
   mh = (mh << 1) | hneg;
   pv = mh | ~(xv | ph);
   mv = ph & xv;
-  return hout;
+}
+
+// The same with the deltas as integers (-1, 0, +1).
+__device__ __forceinline__ int advance(uint32_t& pv, uint32_t& mv, uint32_t eq, int hin) {
+  uint32_t opos, oneg;
+  advance_bits(pv, mv, eq, hin > 0 ? 1u : 0u, hin < 0 ? 1u : 0u, opos, oneg);
+  return static_cast<int>(opos) - static_cast<int>(oneg);
 }
 
 // Bits 0 .. (lp - 1) - 32w of word w: the pattern's rows in that word.
@@ -228,6 +278,139 @@ __global__ void levenshtein_kernel(const T* __restrict__ s1, const T* __restrict
   }
 }
 
+// The sign of byte `sel & 7` of x replicated over each byte of the result
+// whose selector nibble has bit 3 set (PTX prmt, default mode), a whole
+// word for sel = 0x8888 (byte 0) .. 0xBBBB (byte 3).
+__device__ __forceinline__ uint32_t byte_sign(uint32_t x, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0u), "r"(sel));
+  return r;
+}
+
+// 32 uint8 characters as 8 bit planes: bit j of plane k is bit k of
+// character j. The match mask of a character c is the AND over k of plane
+// k where bit k of c is set and of its complement where it is clear.
+struct Planes {
+  uint32_t p[8];
+  // from the 8 words of four characters of a Pattern<uint8_t, 1>
+  __device__ __forceinline__ explicit Planes(const uint32_t (&pk)[8]) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      uint32_t plane = 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)  // bit k of each byte to bit 7, gathered as in eq4
+        plane |= ((((pk[q] << (7 - k)) & 0x80808080u) * 0x00204081u) >> 28) << (4 * q);
+      p[k] = plane;
+    }
+  }
+  __device__ __forceinline__ uint32_t eq(uint32_t c) const {
+    // bits 7..4 of c to the sign bits of bytes 0..3, then bits 3..0: the
+    // shifted copies of c are 9 bits apart, so nothing overlaps or carries
+    const uint32_t hi = c * 0x08040201u;
+    const uint32_t lo = c * 0x80402010u;
+    uint32_t m = ~(p[7] ^ byte_sign(hi, 0x8888u));
+    m &= ~(p[6] ^ byte_sign(hi, 0x9999u));
+    m &= ~(p[5] ^ byte_sign(hi, 0xAAAAu));
+    m &= ~(p[4] ^ byte_sign(hi, 0xBBBBu));
+    m &= ~(p[3] ^ byte_sign(lo, 0x8888u));
+    m &= ~(p[2] ^ byte_sign(lo, 0x9999u));
+    m &= ~(p[1] ^ byte_sign(lo, 0xAAAAu));
+    m &= ~(p[0] ^ byte_sign(lo, 0xBBBBu));
+    return m;
+  }
+};
+
+// Lane-group form, width <= 32 * lanes: `lanes` (1..32) lanes of a warp
+// per pair, floor(32 / lanes) pairs a warp and (blockDim.x / 32) *
+// floor(32 / lanes) a block.
+template <typename T>
+__global__ void levenshtein_group_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
+                                         const int32_t* __restrict__ l1p,
+                                         const int32_t* __restrict__ l2p, int64_t n, int width,
+                                         int lanes, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kEl = static_cast<int>(sizeof(T));
+  const int rowbytes = width * kEl;
+  const int per_block = group_block_pairs(lanes);
+  const StagedLayout lay(per_block, rowbytes, width);
+  const unsigned char* t1 = smem;
+  const unsigned char* t2 = smem + lay.tile;
+  const int* len1 = reinterpret_cast<const int*>(smem + lay.len1);
+  const int* len2 = reinterpret_cast<const int*>(smem + lay.len2);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int rows = n - first < per_block ? static_cast<int>(n - first) : per_block;
+  stage_group_block(smem, lay, reinterpret_cast<const unsigned char*>(s1) + first * rowbytes,
+                    reinterpret_cast<const unsigned char*>(s2) + first * rowbytes, l1p, l2p,
+                    first, nullptr, rows, rowbytes, width);
+
+  const GroupLane g(lanes, reinterpret_cast<const int*>(smem + lay.order), rows);
+  const int l = g.l;
+  const int slot = g.slot;
+  // lengths clamped to the row
+  const int a = slot >= 0 ? min(max(len1[slot], 0), width) : 0;
+  const int b = slot >= 0 ? min(max(len2[slot], 0), width) : 0;
+  const bool swap = a > b;
+  const int lt = swap ? b : a;  // the text: the shorter string
+  const int lp = swap ? a : b;
+  const int off = max(slot, 0) * rowbytes;
+  const unsigned char* text = (swap ? t2 : t1) + off;
+  const int lo = 32 * l;  // this lane's first pattern row
+  Pattern<T, 1> pat;      // pattern positions lo .. lo + 31
+  pat.load(swap ? t1 : t2, off + lo * kEl, min(max(lp - lo, 0), 32));
+
+  // column t - l at step t; the words a pair has take it through its last
+  // column in lt + ceil(lp / 32) - 1 steps
+  const int need = lt > 0 ? lt + ((lp + 31) >> 5) - 1 : 0;
+  const int steps = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(need)));
+  uint32_t pv = 0xFFFFFFFFu;  // D[j][0] = j: vertical deltas +1
+  uint32_t mv = 0u;
+  // what lane l - 1 handed on at the previous step: the delta leaving its
+  // word for this lane's next column (bit 0: +1, bit 1: -1), for uint8 over
+  // that column's character (bits 2..9)
+  uint32_t carry = 0u;
+  if constexpr (kEl == 1) {
+    const Planes planes(pat.pk);
+    for (int t = 0; t < steps; ++t) {
+      // lane 0 reads the character and takes the top row's +1
+      const uint32_t c = l == 0 ? (t < lt ? text[t] : 0u) : carry >> 2;
+      const uint32_t hpos = l == 0 ? 1u : carry & 1u;
+      const uint32_t hneg = l == 0 ? 0u : (carry >> 1) & 1u;
+      uint32_t npv = pv, nmv = mv, opos, oneg;
+      advance_bits(npv, nmv, planes.eq(c), hpos, hneg, opos, oneg);
+      if (static_cast<unsigned>(t - l) < static_cast<unsigned>(lt)) {
+        pv = npv;
+        mv = nmv;
+      }
+      carry = __shfl_up_sync(kFull, opos | oneg << 1 | c << 2, 1);
+    }
+  } else {
+    const uint32_t* tx = reinterpret_cast<const uint32_t*>(text);
+    for (int t = 0; t < steps; ++t) {
+      const int i = t - l;
+      const bool active = static_cast<unsigned>(i) < static_cast<unsigned>(lt);
+      const uint32_t c = active ? tx[i] : 0u;
+      const uint32_t hpos = l == 0 ? 1u : carry & 1u;
+      const uint32_t hneg = l == 0 ? 0u : carry >> 1;
+      uint32_t npv = pv, nmv = mv, opos, oneg;
+      advance_bits(npv, nmv, pat.template eq<8>(0, c), hpos, hneg, opos, oneg);
+      if (active) {
+        pv = npv;
+        mv = nmv;
+      }
+      carry = __shfl_up_sync(kFull, opos | oneg << 1, 1);
+    }
+  }
+
+  // D[lp][lt] = lt + the vertical deltas of rows 1..lp, summed over the group
+  const uint32_t own = rows_of_word(l, lp);
+  int score = __popc(pv & own) - __popc(mv & own);
+  for (int d = 1; d < lanes; d <<= 1) {
+    const int v = __shfl_down_sync(kFull, score, d);
+    if (l + d < lanes) score += v;
+  }
+  if (slot >= 0 && l == 0) out[first + slot] = lt + score;
+}
+
 // Any width: W = ceil(width / 32) at run time, vertical deltas in scratch
 // (pv words at k * n + p, mv words at (W + k) * n + p), characters read
 // from global memory.
@@ -283,25 +466,28 @@ int launch_words(const void* s1, const void* s2, const void* l1, const void* l2,
   const int threads = threads_for(rowbytes);
   const int smem = Layout(threads, rowbytes, width).bytes;
   auto kernel = levenshtein_kernel<T, W>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (const int e = allow_smem(kernel, smem)) return e;
   kernel<<<grid_for(n, kRows * threads), threads, smem, stream>>>(
       static_cast<const T*>(s1), static_cast<const T*>(s2), static_cast<const int32_t*>(l1),
       static_cast<const int32_t*>(l2), n, width, static_cast<int32_t*>(out));
   return 0;
 }
 
-// The compiled word-count variants; 0 is the generic one.
+// The compiled word-count variants, 0 the generic one; -G the lane-group
+// form with G lanes a pair.
 inline bool known_variant(int words) {
-  return words == 0 || words == 1 || words == 2 || words == 4 || words == 8;
+  return (words >= -32 && words <= 2) || words == 4 || words == 8;
 }
 
 template <typename T>
 int launch(const void* s1, const void* s2, const void* l1, const void* l2, int64_t n,
            int width, int words, void* scratch, void* out, cudaStream_t stream) {
+  if (words < 0)
+    return launch_group(levenshtein_group_kernel<T>, n, width * static_cast<int>(sizeof(T)),
+                        width, -words, stream, static_cast<const T*>(s1),
+                        static_cast<const T*>(s2), static_cast<const int32_t*>(l1),
+                        static_cast<const int32_t*>(l2), n, width, -words,
+                        static_cast<int32_t*>(out));
   switch (words) {
     case 1: return launch_words<T, 1>(s1, s2, l1, l2, n, width, out, stream);
     case 2: return launch_words<T, 2>(s1, s2, l1, l2, n, width, out, stream);
@@ -323,12 +509,14 @@ extern "C" {
 
 // s1, s2: (n, width) characters of `elem_bytes` bytes (1: uint8, 4: 32-bit
 // codepoints); l1, l2: (n,) int32; out: (n,) int32. `words` is the variant:
-// 1, 2, 4 or 8 with 32 * words >= width, or 0 for the generic form, which
-// needs `scratch` of 2 * ceil(width / 32) * n uint32.
+// 1, 2, 4 or 8 with 32 * words >= width; -G for the lane-group form with G
+// lanes a pair, 1 <= G <= 32 and 32 * G >= width; or 0 for the generic
+// form, which needs `scratch` of 2 * ceil(width / 32) * n uint32.
 int splink_levenshtein(const void* s1, const void* s2, const void* l1, const void* l2,
                        int64_t n, int width, int elem_bytes, int words, void* scratch,
                        void* out, void* stream) {
-  if (!splink::known_variant(words) || (words > 0 && 32 * words < width) || width < 1 ||
+  const int lanes = words < 0 ? -words : words;
+  if (!splink::known_variant(words) || (words != 0 && 32 * lanes < width) || width < 1 ||
       (elem_bytes != 1 && elem_bytes != 4) || (words == 0 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {

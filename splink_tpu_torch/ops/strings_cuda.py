@@ -12,12 +12,13 @@ The counterpart of splink_tpu/ops/strings_pallas.py:
 
 Every column width goes to a kernel: the kernel variant is the number of
 32-bit words W that a pair's per-position sets need (``kernel_variant``).
-Levenshtein runs a variant with W fixed at compile time, one pair per
-thread, up to width 256, and its generic form past it, for which the
-wrapper allocates per-pair scratch. Jaro-Winkler runs its fixed W = 1 and
-W = 2 forms up to width 64, the lane-group form (variant -G: G =
+Both kernels run a form with W fixed at compile time, one pair per thread,
+on narrow columns (Levenshtein W = 1, 2, 4, 8 up to width 256,
+Jaro-Winkler W = 1, 2 up to 64), then the lane-group form (variant -G: G =
 ceil(width / 32) lanes of a warp share a pair, no scratch) up to width
-1024, and its generic form (variant 0, sets in shared memory) past it.
+1024, and the generic form (variant 0) past it: Jaro-Winkler's keeps its
+sets in shared memory, Levenshtein's its deltas in per-pair scratch that
+the wrapper allocates.
 Per pair the kernels read about 2L + 8 bytes and write 4; chip_smoke.py
 reports each one's time beside the larger of the bytes over 3.35 TB/s and
 its integer operations over the card's INT32 rate.
@@ -53,8 +54,9 @@ KERNELS = ("jaro_winkler", "levenshtein")  # one csrc/<name>.cu each
 # Per kernel, the word counts compiled with W fixed; 0 names the generic form
 VARIANT_WORDS = {"jaro_winkler": (1, 2), "levenshtein": (1, 2, 4, 8)}
 # Per kernel, the most lanes of the lane-group form (variant -G, G lanes a
-# pair) for columns past its fixed forms; wider columns take the generic one
-GROUP_LANES = {"jaro_winkler": 32}
+# pair) for columns past its fixed forms: 32, so up to width 1024; wider
+# columns take the generic form
+GROUP_LANES = {"jaro_winkler": 32, "levenshtein": 32}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
@@ -86,9 +88,10 @@ _KINDS = {torch.uint8: "u8", torch.int32: "u32", torch.uint32: "u32"}
 def kernel_variant(kernel: str, width: int, dtype: torch.dtype) -> tuple[str, int]:
     """The character type and variant of ``kernel`` for a (B, width)
     column: ("u8" | "u32", W) with W the least of VARIANT_WORDS[kernel]
-    such that 32 * W >= width; past the widest, -G for the lane-group form
-    with G = ceil(width / 32) lanes where the kernel has one with that many
-    (GROUP_LANES), else 0 (generic). Raises on another dtype."""
+    such that 32 * W >= width (Levenshtein up to 256, Jaro-Winkler up to
+    64); past the widest, -G for the lane-group form with G = ceil(width /
+    32) lanes where the kernel has one with that many (GROUP_LANES: both
+    up to width 1024), else 0 (generic). Raises on another dtype."""
     kind = _KINDS.get(dtype)
     if kind is None:
         raise ValueError(f"unsupported character dtype {dtype}")
