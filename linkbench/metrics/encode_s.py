@@ -1,0 +1,7 @@
+"""``encode_s``: seconds a job in the linker's ``encode`` stage."""
+
+from linkbench.metrics._stage import mean_stage
+
+
+def read(run):
+    return mean_stage(run, "encode")
