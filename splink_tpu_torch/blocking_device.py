@@ -70,6 +70,7 @@ from .pairgen import (
 )
 from .spill import DIGEST_ADD, DIGEST_MUL
 from .utils.logging_utils import format_stage_log
+from .utils.profiling import note_d2h, note_h2d, note_reads, note_sync, span
 
 logger = logging.getLogger("splink_tpu_torch")
 
@@ -85,8 +86,9 @@ AUTO_MIN_PAIRS = 1 << 21
 _IMAX = np.iinfo(np.int32).max
 _U32 = 0xFFFFFFFF
 
-# The last run of device_block_rules: where its time went (host seconds,
-# synchronised with the device at each part's end) and what it emitted.
+# The last run of device_block_rules: where its time went (host seconds of
+# its plan, emit and finish spans, synchronised with the device at the
+# plan's and the emission's end) and what it emitted.
 last_run: dict = {}
 
 
@@ -98,6 +100,7 @@ def _pow2(n: int) -> int:
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
+        note_sync(device)
         torch.cuda.synchronize(device)
 
 
@@ -121,10 +124,13 @@ def segment_sort(codes: np.ndarray, side: np.ndarray, rank: np.ndarray,
     comp = (key << 32) | (side_t << 31) | rank_t
     comp_s, perm = torch.sort(comp, stable=True)
     rows_t = torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(device)
+    note_h2d(codes_t, side_t, rank_t, rows_t)
     order = rows_t[perm]
     m = comp_s.numel()
     key_s = comp_s >> 32
     side_s = (comp_s >> 31) & 1
+    # on CUDA, nonzero reads its count back to size its output
+    note_reads(comp_s, 1)
     edges = torch.nonzero(key_s[1:] != key_s[:-1]).flatten() + 1
     zero = torch.zeros(1, dtype=torch.int64, device=device)
     starts = torch.cat([zero, edges])
@@ -133,6 +139,7 @@ def segment_sort(codes: np.ndarray, side: np.ndarray, rank: np.ndarray,
     l_cnt = left[ends] - left[starts]
     r_cnt = (ends - starts) - l_cnt
     n_valid = int((codes >= 0).sum())
+    note_d2h(starts, l_cnt, r_cnt, order)
     starts, l_cnt, r_cnt = (a.cpu().numpy() for a in (starts, l_cnt, r_cnt))
     live = starts < n_valid  # drop the trailing null segment
     # torchlint: disable=JL003 (the segment plan returns host arrays: counted in block_segment_sort's allow_syncs)
@@ -189,7 +196,9 @@ class DeviceBlockPlan:
         key = str(device)
         if key not in self._device_arrays:
             def up(a, dt=None):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+                out = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+                note_h2d(out)
+                return out
 
             self._device_arrays[key] = {
                 "ranks": up(self.ranks),
@@ -560,17 +569,24 @@ def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int, mesh=None):
     compacts (:func:`_emit_chunk_sharded`): the same pairs.
     Ends with one logger line of the emission's counts and rate and one
     ambient ``blocking_device`` event with the reference's fields (the
-    copy ring's occupancy is not sampled: those two fields are null)."""
-    from .obs.events import publish
-
+    copy ring's occupancy is not sampled: those two fields are null); its
+    seconds are the emission's ``pairs`` span, open from the first chunk
+    to the last one's read (a consumer's spans in between nest in it)."""
     if plan.n_candidates == 0:
         return
+    with span("pairs", candidates=plan.n_candidates) as sp:
+        yield from _emission(plan, batch_size, mesh, sp)
+
+
+def _emission(plan: DeviceBlockPlan, batch_size: int, mesh, sp: dict):
+    """The body of :func:`iter_device_pairs`, in its open span ``sp``."""
+    from .obs.events import publish
+
     ctx = _emission_context(plan, batch_size, mesh)
     chunks = _Chunks(plan.device, ctx["compact_dev"])
     stats = {"chunks": 0, "submitted": 0, "pairs": 0, "candidates": 0,
              "fill_sum": 0.0, "completed": False}
     per_rule: dict[int, list] = {}
-    t0 = time.perf_counter()
 
     def account(rr, i):
         stats["chunks"] += 1
@@ -601,7 +617,8 @@ def iter_device_pairs(plan: DeviceBlockPlan, batch_size: int, mesh=None):
     finally:
         # the consumer may abandon the generator mid-stream
         chunks.clear()
-        elapsed = max(time.perf_counter() - t0, 1e-9)
+        sp["attrs"].update(chunks=stats["chunks"], pairs=stats["pairs"])
+        elapsed = max((time.time_ns() - sp["t0"]) * 1e-9, 1e-9)
         fields = dict(
             rules=len(plan.rules), chunks=stats["chunks"], pairs=stats["pairs"],
             candidates=stats["candidates"], elapsed_s=round(elapsed, 4),
@@ -644,32 +661,32 @@ def device_block_rules(settings: dict, table: EncodedTable, n_left: int | None, 
                 < AUTO_MIN_PAIRS:
             return None
     device = resolve_device(device)
-    t0 = time.perf_counter()
-    plan, reason = _plan_or_reason(settings, table, n_left, None, device)
-    _sync(device)
-    plan_s = time.perf_counter() - t0
+    with span("plan") as plan_span:
+        plan, reason = _plan_or_reason(settings, table, n_left, None, device)
+        _sync(device)
     if plan is None:
         warn_degraded("device_blocking", "host_blocking", reason, device=str(device))
         return None
     batch = int(settings.get("blocking_chunk_pairs") or DEFAULT_CHUNK_PAIRS)
     logger.info("device blocking: %d candidate positions, %d rules",
                 plan.n_candidates, len(plan.rules))
-    t0 = time.perf_counter()
     n_chunks = 0
-    for _r, i, j in iter_device_pairs(plan, batch):
-        sink.append(i, j)
-        n_chunks += 1
-        if pair_consumer is not None:
-            pair_consumer(i.astype(sink.idx_dtype, copy=False),
-                          j.astype(sink.idx_dtype, copy=False))
-    _sync(device)
-    emit_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = sink.finish() if finish else sink
+    with span("emit") as emit_span:
+        for _r, i, j in iter_device_pairs(plan, batch):
+            sink.append(i, j)
+            n_chunks += 1
+            if pair_consumer is not None:
+                with span("consume", pairs=len(i)):
+                    pair_consumer(i.astype(sink.idx_dtype, copy=False),
+                                  j.astype(sink.idx_dtype, copy=False))
+        _sync(device)
+    with span("finish") as finish_span:
+        out = sink.finish() if finish else sink
     last_run.clear()
-    last_run.update(plan_s=plan_s, emit_s=emit_s, finish_s=time.perf_counter() - t0,
-                    chunks=n_chunks, pairs=out.n_pairs if finish else None,
-                    candidates=plan.n_candidates, rules=len(plan.rules), device=str(device))
+    last_run.update(plan_s=plan_span["dur_s"], emit_s=emit_span["dur_s"],
+                    finish_s=finish_span["dur_s"], chunks=n_chunks,
+                    pairs=out.n_pairs if finish else None, candidates=plan.n_candidates,
+                    rules=len(plan.rules), device=str(device))
     return out
 
 

@@ -83,7 +83,10 @@
 // in row order); a block without survivors returns, the others stage only
 // their survivors' rows. The two-phase gamma path launches this once per
 // batch over the whole batch, so no host wait, gather or scatter is needed
-// around it.
+// around it. With a `survivors` counter (an int64 on the device, or null),
+// each block adds its survivor count to it with one atomicAdd (the generic
+// form one a surviving pair), so a caller counts the two-phase filter's
+// survivors with no launch of its own.
 //
 // Columns wider than 1024 take the generic form (variant 0): one thread a
 // pair, characters read from global memory, the sets used (of b) and
@@ -255,7 +258,8 @@ __device__ __forceinline__ float jw_pair(const Pattern<T, W>& pat, const unsigne
 template <int R>
 __device__ __forceinline__ int compact_survivors(const bool* __restrict__ mask, int64_t first,
                                                  int rows, int per_block, int* counts,
-                                                 int* rowid, float* __restrict__ out) {
+                                                 int* rowid, float* __restrict__ out,
+                                                 unsigned long long* survivors) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int chunks = (per_block + 31) >> 5;
@@ -284,6 +288,8 @@ __device__ __forceinline__ int compact_survivors(const bool* __restrict__ mask, 
   __syncthreads();
   const int count = counts[chunks];
   if (count == 0) return 0;  // the same count in every thread
+  if (survivors != nullptr && tid == 0)
+    atomicAdd(survivors, static_cast<unsigned long long>(count));
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = r * blockDim.x + tid;
@@ -298,7 +304,8 @@ template <typename T, int W>
 __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
                                     const int32_t* __restrict__ l1p,
                                     const int32_t* __restrict__ l2p,
-                                    const bool* __restrict__ mask, int64_t n, int width,
+                                    const bool* __restrict__ mask,
+                                    unsigned long long* survivors, int64_t n, int width,
                                     float prefix_scale, float boost_threshold,
                                     float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -323,7 +330,8 @@ __global__ void jaro_winkler_kernel(const T* __restrict__ s1, const T* __restric
   // the block's slots: its survivors in row order (every row when dense)
   int count = rows;
   if (mask != nullptr) {
-    count = compact_survivors<kRows>(mask, first, rows, per_block, counts, rowid, out);
+    count = compact_survivors<kRows>(mask, first, rows, per_block, counts, rowid, out,
+                                     survivors);
     if (count == 0) return;
     stage_rows(t1, g1, rowid, count, rowbytes);
     stage_rows(t2, g2, rowid, count, rowbytes);
@@ -410,7 +418,8 @@ template <typename T>
 __global__ void jaro_winkler_group_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
                                           const int32_t* __restrict__ l1p,
                                           const int32_t* __restrict__ l2p,
-                                          const bool* __restrict__ mask, int64_t n, int width,
+                                          const bool* __restrict__ mask,
+                                          unsigned long long* survivors, int64_t n, int width,
                                           int lanes, float prefix_scale, float boost_threshold,
                                           float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -429,7 +438,7 @@ __global__ void jaro_winkler_group_kernel(const T* __restrict__ s1, const T* __r
 
   int count = rows;
   if (mask != nullptr) {
-    count = compact_survivors<1>(mask, first, rows, per_block, counts, rowid, out);
+    count = compact_survivors<1>(mask, first, rows, per_block, counts, rowid, out, survivors);
     if (count == 0) return;
   }
   stage_group_block(smem, lay, reinterpret_cast<const unsigned char*>(s1) + first * rowbytes,
@@ -560,7 +569,8 @@ template <typename T>
 __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
                                          const int32_t* __restrict__ l1p,
                                          const int32_t* __restrict__ l2p,
-                                         const bool* __restrict__ mask, int64_t n,
+                                         const bool* __restrict__ mask,
+                                         unsigned long long* survivors, int64_t n,
                                          int width, float prefix_scale, float boost_threshold,
                                          float* __restrict__ out) {
   extern __shared__ uint32_t sets[];
@@ -570,6 +580,7 @@ __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __re
     out[p] = 0.0f;
     return;
   }
+  if (mask != nullptr && survivors != nullptr) atomicAdd(survivors, 1ull);
   const int l1 = l1p[p];
   const int l2 = l2p[p];
   const bool swap = l1 > l2;
@@ -624,15 +635,15 @@ __global__ void jaro_winkler_wide_kernel(const T* __restrict__ s1, const T* __re
 
 template <typename T, int W>
 int launch_words(const T* a, const T* b, const int32_t* la, const int32_t* lb, const bool* mk,
-                 int64_t n, int width, float prefix_scale, float boost_threshold, float* o,
-                 cudaStream_t stream) {
+                 unsigned long long* sv, int64_t n, int width, float prefix_scale,
+                 float boost_threshold, float* o, cudaStream_t stream) {
   const int rowbytes = width * static_cast<int>(sizeof(T));
   const int threads = threads_for(rowbytes);
   const int smem = StagedLayout(kRows * threads, rowbytes, width).bytes;
   auto kernel = jaro_winkler_kernel<T, W>;
   if (const int e = allow_smem(kernel, smem)) return e;
   kernel<<<grid_for(n, kRows * threads), threads, smem, stream>>>(
-      a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o);
+      a, b, la, lb, mk, sv, n, width, prefix_scale, boost_threshold, o);
   return 0;
 }
 
@@ -640,8 +651,8 @@ int launch_words(const T* a, const T* b, const int32_t* la, const int32_t* lb, c
 // 48 KB, fewer than a warp only past width 6,144.
 template <typename T>
 int launch_generic(const T* a, const T* b, const int32_t* la, const int32_t* lb,
-                   const bool* mk, int64_t n, int width, float prefix_scale,
-                   float boost_threshold, float* o, cudaStream_t stream) {
+                   const bool* mk, unsigned long long* sv, int64_t n, int width,
+                   float prefix_scale, float boost_threshold, float* o, cudaStream_t stream) {
   const int per_thread = 8 * ((width + 31) >> 5);  // both sets, bytes
   if (per_thread > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   int threads = kThreads;
@@ -649,35 +660,36 @@ int launch_generic(const T* a, const T* b, const int32_t* la, const int32_t* lb,
   const int smem = threads * per_thread;
   auto kernel = jaro_winkler_wide_kernel<T>;
   if (const int e = allow_smem(kernel, smem)) return e;
-  kernel<<<grid_for(n, threads), threads, smem, stream>>>(a, b, la, lb, mk, n, width,
+  kernel<<<grid_for(n, threads), threads, smem, stream>>>(a, b, la, lb, mk, sv, n, width,
                                                           prefix_scale, boost_threshold, o);
   return 0;
 }
 
 template <typename T>
 int launch(const void* s1, const void* s2, const void* l1, const void* l2, const void* mask,
-           int64_t n, int width, int words, float prefix_scale, float boost_threshold,
-           void* out, cudaStream_t stream) {
+           void* survivors, int64_t n, int width, int words, float prefix_scale,
+           float boost_threshold, void* out, cudaStream_t stream) {
   const T* a = static_cast<const T*>(s1);
   const T* b = static_cast<const T*>(s2);
   const int32_t* la = static_cast<const int32_t*>(l1);
   const int32_t* lb = static_cast<const int32_t*>(l2);
   const bool* mk = static_cast<const bool*>(mask);
+  unsigned long long* sv = static_cast<unsigned long long*>(survivors);
   float* o = static_cast<float*>(out);
   if (words < 0)
     return launch_group(jaro_winkler_group_kernel<T>, n, width * static_cast<int>(sizeof(T)),
-                        width, -words, stream, a, b, la, lb, mk, n, width, -words,
+                        width, -words, stream, a, b, la, lb, mk, sv, n, width, -words,
                         prefix_scale, boost_threshold, o);
   switch (words) {
     case 1:
-      return launch_words<T, 1>(a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o,
-                                stream);
+      return launch_words<T, 1>(a, b, la, lb, mk, sv, n, width, prefix_scale,
+                                boost_threshold, o, stream);
     case 2:
-      return launch_words<T, 2>(a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o,
-                                stream);
+      return launch_words<T, 2>(a, b, la, lb, mk, sv, n, width, prefix_scale,
+                                boost_threshold, o, stream);
     default:
-      return launch_generic<T>(a, b, la, lb, mk, n, width, prefix_scale, boost_threshold, o,
-                               stream);
+      return launch_generic<T>(a, b, la, lb, mk, sv, n, width, prefix_scale,
+                               boost_threshold, o, stream);
   }
 }
 
@@ -688,13 +700,16 @@ extern "C" {
 
 // s1, s2: (n, width) characters of `elem_bytes` bytes (1: uint8, 4: 32-bit
 // codepoints); l1, l2: (n,) int32; mask: (n,) bool, or null for every
-// pair; out: (n,) float32, 0 where the mask is false. `words` is the
+// pair; survivors: an int64 on the device that each masked launch adds its
+// survivors to, or null; out: (n,) float32, 0 where the mask is false.
+// `words` is the
 // variant: 1 or 2 (the fixed forms) with 32 * words >= width; -G for the
 // lane-group form with G lanes a pair, 1 <= G <= 32 and 32 * G >= width;
 // or 0 for the generic form (width <= 929,792).
 int splink_jaro_winkler(const void* s1, const void* s2, const void* l1, const void* l2,
                         int64_t n, int width, int elem_bytes, int words, float prefix_scale,
-                        float boost_threshold, const void* mask, void* out, void* stream) {
+                        float boost_threshold, const void* mask, void* survivors, void* out,
+                        void* stream) {
   const int lanes = words < 0 ? -words : words;
   if (words < -32 || words > 2 || (words != 0 && 32 * lanes < width) || width < 1 ||
       (elem_bytes != 1 && elem_bytes != 4))
@@ -702,10 +717,10 @@ int splink_jaro_winkler(const void* s1, const void* s2, const void* l1, const vo
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int e = elem_bytes == 1
-                      ? splink::launch<uint8_t>(s1, s2, l1, l2, mask, n, width, words,
-                                                prefix_scale, boost_threshold, out, st)
-                      : splink::launch<uint32_t>(s1, s2, l1, l2, mask, n, width, words,
-                                                 prefix_scale, boost_threshold, out, st);
+                      ? splink::launch<uint8_t>(s1, s2, l1, l2, mask, survivors, n, width,
+                                                words, prefix_scale, boost_threshold, out, st)
+                      : splink::launch<uint32_t>(s1, s2, l1, l2, mask, survivors, n, width,
+                                                 words, prefix_scale, boost_threshold, out, st);
     if (e != 0) return e;
   }
   return static_cast<int>(cudaGetLastError());

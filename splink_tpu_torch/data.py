@@ -19,6 +19,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .utils.profiling import span
+
 DEFAULT_STRING_WIDTH = 24
 
 
@@ -176,8 +178,6 @@ def encode_string_column(values, width: int = DEFAULT_STRING_WIDTH) -> EncodedSt
     token ids still distinguish full values, so exact comparison and TF
     adjustment are unaffected by truncation.
     """
-    import pandas as pd
-
     # Factorise FIRST, char-encode the UNIQUES ONLY, then gather per-row
     # arrays by code: every python-level string pass shrinks from n rows
     # to V distinct values, and for true string dtypes (arrow-backed or
@@ -188,8 +188,50 @@ def encode_string_column(values, width: int = DEFAULT_STRING_WIDTH) -> EncodedSt
     # (distinct str() forms), so mixed-type object columns (123 vs "123"
     # vs 123.0, unhashable cells) stringify per row first, exactly as
     # before — only genuinely-string columns skip that pass.
+    with span("factorize"):
+        raw_codes, uobj, obj = _factorize(values)
+    n = len(raw_codes)
+    null_mask = raw_codes < 0
+    token_ids = raw_codes  # -1 for null; ids = distinct str() forms
+
+    with span("pack"):
+        ubytes, ulengths, width = _pack_uniques(uobj, width)
+
+    with span("gather"):
+        safe_codes = np.where(null_mask, 0, raw_codes)
+        if len(ubytes):
+            bytes_ = ubytes[safe_codes]
+            lengths = ulengths[safe_codes]
+            if null_mask.any():
+                bytes_[null_mask] = 0
+                lengths = np.where(null_mask, 0, lengths).astype(np.int32)
+        else:  # no uniques: every row is null (or n == 0)
+            bytes_ = np.zeros((n, width), np.uint8)
+            lengths = np.zeros(n, np.int32)
+
+        if obj is None:  # string-dtype fast path: originals ARE the uniques
+            obj = np.empty(n, dtype=object)
+            if not null_mask.all():
+                nz = ~null_mask
+                obj[nz] = uobj[raw_codes[nz]]
+    return EncodedStringColumn(
+        bytes_=bytes_,
+        lengths=lengths,
+        token_ids=token_ids,
+        null_mask=null_mask,
+        values=obj,
+        width=width,
+    )
+
+
+def _factorize(values):
+    """(int32 codes with -1 for null, object uniques, the original-value
+    object array or None where the uniques are the originals) of a string
+    column: natively for a string dtype, else over the stringified
+    values."""
+    import pandas as pd
+
     ser = values if isinstance(values, pd.Series) else pd.Series(values)
-    n = len(ser)
     obj = None  # original-value object array; None until needed
     if _is_string_dtype(ser.dtype):
         raw_codes, raw_uniques = pd.factorize(ser, use_na_sentinel=True)
@@ -208,11 +250,12 @@ def encode_string_column(values, width: int = DEFAULT_STRING_WIDTH) -> EncodedSt
                 pd.Series(strs_obj, dtype=object), use_na_sentinel=True
             )
         uobj = np.asarray(raw_uniques, dtype=object)
-    raw_codes = raw_codes.astype(np.int32)
-    null_mask = raw_codes < 0
-    safe_codes = np.where(null_mask, 0, raw_codes)
-    token_ids = raw_codes  # -1 for null; ids = distinct str() forms
+    return raw_codes.astype(np.int32), uobj, obj
 
+
+def _pack_uniques(uobj, width: int):
+    """(chars, lengths, width) of the distinct values: uint8 from the native
+    packer where every value is ASCII, else uint32 codepoints."""
     ustrs = [str(v) for v in uobj]
     ulens = np.fromiter(map(len, ustrs), np.int64, count=len(ustrs))
     # Width = observed max length rounded up to 8, capped by the configured
@@ -240,30 +283,7 @@ def encode_string_column(values, width: int = DEFAULT_STRING_WIDTH) -> EncodedSt
                 [ord(c) for c in chars], dtype=np.uint32
             )
             ulengths[i] = len(chars)
-
-    if len(ubytes):
-        bytes_ = ubytes[safe_codes]
-        lengths = ulengths[safe_codes]
-        if null_mask.any():
-            bytes_[null_mask] = 0
-            lengths = np.where(null_mask, 0, lengths).astype(np.int32)
-    else:  # no uniques: every row is null (or n == 0)
-        bytes_ = np.zeros((n, width), np.uint8)
-        lengths = np.zeros(n, np.int32)
-
-    if obj is None:  # string-dtype fast path: originals ARE the uniques
-        obj = np.empty(n, dtype=object)
-        if not null_mask.all():
-            nz = ~null_mask
-            obj[nz] = uobj[raw_codes[nz]]
-    return EncodedStringColumn(
-        bytes_=bytes_,
-        lengths=lengths,
-        token_ids=token_ids,
-        null_mask=null_mask,
-        values=obj,
-        width=width,
-    )
+    return ubytes, ulengths, width
 
 
 def encode_numeric_column(values) -> EncodedNumericColumn:
@@ -363,12 +383,13 @@ def encode_table(df, settings: dict, source_table: np.ndarray | None = None) -> 
     for name, dtype in typed.items():
         if name not in df.columns:
             raise ValueError(f"Input data is missing comparison column {name!r}")
-        if dtype == "numeric":
-            table.numerics[name] = encode_numeric_column(df[name])
-        else:
-            table.strings[name] = encode_string_column(
-                df[name], widths.get(name, DEFAULT_STRING_WIDTH)
-            )
+        with span("column", column=name):
+            if dtype == "numeric":
+                table.numerics[name] = encode_numeric_column(df[name])
+            else:
+                table.strings[name] = encode_string_column(
+                    df[name], widths.get(name, DEFAULT_STRING_WIDTH)
+                )
     for name in passthrough:
         if name not in df.columns:
             raise ValueError(f"Input data is missing retained column {name!r}")

@@ -28,6 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .utils.profiling import note_d2h, note_h2d
+
 from .models.fellegi_sunter import (
     FSParams,
     fold_logit,
@@ -92,6 +94,7 @@ def run_em(
     ll_h = torch.full((n_hist,), float("nan"), dtype=dtype, device=dev)
     lam_h[0], m_h[0], u_h[0] = init.lam, init.m, init.u
     tol = torch.tensor(em_convergence, dtype=dtype, device=dev)
+    note_h2d(tol)
 
     params = init
     it = 0
@@ -111,8 +114,10 @@ def run_em(
             # ll under the PRE-update params, archived at the pre-update
             # index (the reference computes it in the E-step)
             ll_pre = _log_likelihood(shards, w_shards, on_shards)
+        flag = delta < tol
+        note_d2h(flag)
         # torchlint: disable=JL003 (the one host read per update, the convergence flag)
-        converged = bool(delta < tol)  # the one host read per update
+        converged = bool(flag)  # the one host read per update
         if on_update is not None:
             on_update(it + 1, new, ll_pre, converged)
         if compute_ll:
@@ -122,6 +127,7 @@ def run_em(
         params = new
     if compute_ll:
         ll_h[it] = _log_likelihood(shards, w_shards, _replicate(params, shards))
+    note_d2h(lam_h, m_h, u_h, ll_h)
     return EMResult(
         params=params,
         n_updates=it,
@@ -170,7 +176,10 @@ def _with_telemetry(on_update, telemetry, compute_ll: bool):
     def hook(it, new, ll_pre, converged):
         if on_update is not None:
             on_update(it, new, ll_pre, converged)
+        note_d2h(*new)
         lam, m, u = (t.cpu().numpy() for t in new)
+        if compute_ll:
+            note_d2h(ll_pre)
         telemetry.em_update(int(it), float(lam), m, u,
                             float(ll_pre) if compute_ll else None, converged)
 

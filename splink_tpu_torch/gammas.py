@@ -35,6 +35,9 @@ with ``torch.nonzero`` and the plain version runs on those rows. The gamma
 matrix is bit-identical to both of the reference's bodies either way.
 With no survivor capacity there is nothing to overflow, so the reference's
 overflow flag and its exact-twin redo of a batch have no counterpart here.
+A pass may count the filter's survivors (:class:`SurvivorCounts`): the
+masked kernel adds them up on the device as it runs, and the pass reads
+them back with a read it makes anyway.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from .ops.gamma import (
     bucket_difference_le,
     bucket_similarity,
 )
+from .utils.profiling import count, note_d2h, note_h2d, note_reads, note_sync, span
 
 DEFAULT_PAIR_BATCH = 1 << 20
 
@@ -341,10 +345,11 @@ class PairContext:
     """Per-column unpack context over the two gathered row blocks (int32
     tensors carrying the packed lanes' bit patterns)."""
 
-    def __init__(self, layout: dict, rows_l, rows_r):
+    def __init__(self, layout: dict, rows_l, rows_r, survivors=None):
         self._layout = layout
         self._rows_l = rows_l
         self._rows_r = rows_r
+        self.survivors = survivors  # SurvivorCounts of a counting pass, or None
 
     def _string_side(self, f: _StringField, rows):
         lanes = rows[:, f.chars].contiguous()
@@ -436,19 +441,22 @@ def _align_chars(a, b):
     return _pad_chars(a, width), _pad_chars(b, width)
 
 
-def _survivor_levels_masked(pc: PairColumn, surv, thresholds):
+def _survivor_levels_masked(pc: PairColumn, surv, thresholds, slot=None):
     """Levels of the survivors, 0 elsewhere, from one masked Jaro-Winkler
-    launch over the whole batch (the card's form)."""
+    launch over the whole batch (the card's form), which adds the survivors
+    to ``slot`` (an int64 element, or None)."""
     sim = string_ops.jaro_winkler(
-        pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, 0.1, 0.7, mask=surv
+        pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, 0.1, 0.7, mask=surv, survivors=slot
     )
     return torch.where(surv, bucket_similarity(sim, thresholds, None), 0)
 
 
-def _survivor_levels_compacted(pc: PairColumn, surv, thresholds):
+def _survivor_levels_compacted(pc: PairColumn, surv, thresholds, slot=None):
     """The same levels with the survivors compacted first (the CPU's form:
     the plain version then runs on those rows only)."""
     pos = torch.nonzero(surv).squeeze(1)
+    if slot is not None:
+        slot += pos.numel()
     sim = string_ops.jaro_winkler(
         pc.chars_l[pos], pc.chars_r[pos], pc.len_l[pos], pc.len_r[pos], 0.1, 0.7
     )
@@ -457,17 +465,18 @@ def _survivor_levels_compacted(pc: PairColumn, surv, thresholds):
     return lvl
 
 
-def _survivor_levels(pc: PairColumn, surv, thresholds):
+def _survivor_levels(pc: PairColumn, surv, thresholds, slot=None):
     if surv.is_cuda:
-        return _survivor_levels_masked(pc, surv, thresholds)
-    return _survivor_levels_compacted(pc, surv, thresholds)
+        return _survivor_levels_masked(pc, surv, thresholds, slot)
+    return _survivor_levels_compacted(pc, surv, thresholds, slot)
 
 
-def _jw_two_phase(pc: PairColumn, aux, thresholds):
+def _jw_two_phase(pc: PairColumn, aux, thresholds, survivors=None, column: str = ""):
     """Two-phase Jaro-Winkler gamma (splink_tpu gammas._jw_two_phase): the
     sound upper bound excludes pairs below the lowest threshold, token-equal
     pairs take their level without a kernel, and the exact kernel runs on
-    the survivors only."""
+    the survivors only. ``survivors`` (a :class:`SurvivorCounts`) counts
+    them for ``column``."""
     (cl, pl), (cr, pr) = aux
     ub = jw_bound.jw_upper_bound(cl, pl, cr, pr, pc.len_l, pc.len_r, 0.1, 0.7)
     # torchlint: disable=JL003 (a 0-d constant: counted in gamma_batch's cuda allow_syncs)
@@ -479,12 +488,11 @@ def _jw_two_phase(pc: PairColumn, aux, thresholds):
     equal_level = sum(1 for t in thresholds if 1.0 > t)
     equal = (pc.tok_l == pc.tok_r) & (pc.len_l > 0)
     surv = (ub >= lowest) & ~equal & ~pc.null
-    lvl = torch.where(
-        equal,
-        # torchlint: disable=JL003 (a 0-d level constant: counted in gamma_batch's cuda allow_syncs)
-        torch.tensor(equal_level, dtype=GAMMA_DTYPE, device=ub.device),
-        _survivor_levels(pc, surv, thresholds),
-    )
+    slot = survivors.slot(column, surv.numel()) if survivors is not None else None
+    # torchlint: disable=JL003 (a 0-d level constant: counted in gamma_batch's cuda allow_syncs)
+    level = torch.tensor(equal_level, dtype=GAMMA_DTYPE, device=ub.device)
+    note_h2d(lowest, level)
+    lvl = torch.where(equal, level, _survivor_levels(pc, surv, thresholds, slot))
     return apply_null(lvl, pc.null)
 
 
@@ -537,7 +545,7 @@ def _spec_gamma(col_settings: dict, ctx: PairContext, two_phase: bool):
     if kind == "jaro_winkler":
         aux = ctx.jw_aux(name) if thresholds else None
         if aux is not None and two_phase:
-            return _jw_two_phase(pc, aux, thresholds)
+            return _jw_two_phase(pc, aux, thresholds, ctx.survivors, name)
         sim = string_ops.jaro_winkler(
             pc.chars_l, pc.chars_r, pc.len_l, pc.len_r, 0.1, 0.7
         )
@@ -618,6 +626,8 @@ def pattern_histogram(ids: torch.Tensor, length: int) -> torch.Tensor:
     """(length,) int64 counts of the int ids, each in [0, length): the
     histogram of every pattern pass (the reference's ``int32_histogram``,
     whose int32 accumulator must flush; int64 counts need no flush)."""
+    # on CUDA, bincount reads the ids' least and greatest value back first
+    note_reads(ids, 2)
     return torch.bincount(ids, minlength=length)
 
 
@@ -704,6 +714,7 @@ class _Downloads:
         else:
             buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
         host = buf[:nbytes].view(tensor.dtype).view(tensor.shape)
+        note_d2h(tensor, wait=False)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
             host.copy_(tensor, non_blocking=True)
@@ -716,6 +727,7 @@ class _Downloads:
         tag, host, done, buf = self._queue.popleft()
         if done is None:
             return tag, host.numpy()
+        note_sync(self.device)
         done.synchronize()
         out = host.numpy().copy()
         self._free.append(buf)
@@ -735,9 +747,41 @@ class _Downloads:
         self._queue.clear()
 
 
+class SurvivorCounts:
+    """The two-phase Jaro-Winkler filter's inputs and survivors, counted for
+    each masked column a pass computes. The survivors add up on the device
+    in ``slots`` (int64, one a column of ``columns``, zero at the start):
+    the masked kernel adds each block's survivors to its column's slot, so
+    counting launches nothing (the CPU's forms add the count they have).
+    The inputs, the batch sizes, count on the host (``jw_pairs``);
+    :meth:`settle` takes the slots' values from a read the pass makes
+    anyway (``jw_survivors``)."""
+
+    def __init__(self, columns: list[str], slots: torch.Tensor):
+        self.columns = columns
+        self.slots = slots
+
+    def slot(self, column: str, pairs: int) -> torch.Tensor:
+        """The slot of ``column``, whose batch of ``pairs`` enters the
+        filter."""
+        count("jw_pairs", pairs)
+        count(f"jw_pairs.{column}", pairs)
+        k = self.columns.index(column)
+        return self.slots[k : k + 1]
+
+    def settle(self, values) -> None:
+        """Count the survivors from the host values of ``slots``."""
+        taken = [int(n) for n in np.ravel(values)]
+        for column, n in zip(self.columns, taken):
+            count(f"jw_survivors.{column}", n)
+        count("jw_survivors", sum(taken))
+
+
 def _index_tensor(a, device) -> torch.Tensor:
     """Host pair indices as an int64 tensor on ``device``."""
-    return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+    out = torch.from_numpy(np.asarray(a, np.int64)).to(device)
+    note_h2d(out)
+    return out
 
 
 class GammaProgram:
@@ -753,25 +797,30 @@ class GammaProgram:
         self.two_phase = settings.get("two_phase_jw", "on") != "off" and bool(
             jw_specs_for(settings)
         )
-        packed, layout = pack_table(
-            table,
-            float64=float_dtype == torch.float64,
-            include=comparison_columns_used(settings),
-            qgram_specs=qgram_specs_for(settings),
-            charset_specs=charset_specs_for(settings),
-            jw_specs=jw_specs_for(settings) if self.two_phase else (),
-        )
-        self._packed = torch.from_numpy(packed.view(np.int32)).to(self.device)
+        with span("pack"):
+            packed, layout = pack_table(
+                table,
+                float64=float_dtype == torch.float64,
+                include=comparison_columns_used(settings),
+                qgram_specs=qgram_specs_for(settings),
+                charset_specs=charset_specs_for(settings),
+                jw_specs=jw_specs_for(settings) if self.two_phase else (),
+            )
         self._layout = layout
         self._cols = settings["comparison_columns"]
         self.level_counts = [int(c["num_levels"]) for c in self._cols]
         strides, self.n_patterns = pattern_strides_for(self.level_counts)
         self._pattern_strides = strides
-        self._strides_dev = (
-            torch.tensor(strides, dtype=torch.int32, device=self.device)
-            if self.n_patterns <= MAX_PATTERNS else None
-        )
+        with span("upload", bytes=packed.nbytes):
+            self._packed = torch.from_numpy(packed.view(np.int32)).to(self.device)
+            self._strides_dev = (
+                torch.tensor(strides, dtype=torch.int32, device=self.device)
+                if self.n_patterns <= MAX_PATTERNS else None
+            )
+            note_h2d(self._packed, self._strides_dev)
         self._mesh_kernels: dict = {}
+        # the SurvivorCounts of the pass running now, when it counts them
+        self.survivors: SurvivorCounts | None = None
 
     def gamma_batch(self, idx_l, idx_r) -> torch.Tensor:
         """(b, n_cols) int8 gammas for index tensors on the program's device."""
@@ -782,9 +831,24 @@ class GammaProgram:
         device); ``two_phase`` False is the exact body, dense Jaro-Winkler
         over every pair."""
         ctx = PairContext(
-            self._layout, packed.index_select(0, idx_l), packed.index_select(0, idx_r)
+            self._layout, packed.index_select(0, idx_l), packed.index_select(0, idx_r),
+            survivors=self.survivors if two_phase else None,
         )
         return torch.stack([_spec_gamma(c, ctx, two_phase) for c in self._cols], dim=1)
+
+    def masked_jw_columns(self) -> list[str]:
+        """The columns whose Jaro-Winkler runs two-phase in
+        :meth:`gamma_batch`, in the order a batch takes them."""
+        if not self.two_phase:
+            return []
+        out = []
+        for c in self._cols:
+            spec = c["comparison"]
+            name = _comparison_input_column(c)
+            if (spec["kind"] == "jaro_winkler" and spec.get("thresholds")
+                    and _jw_key(name) in self._layout):
+                out.append(name)
+        return out
 
     def _pattern_batch_for_mesh(self, mesh):
         """The per-shard pattern kernel of a mesh pass: fn(k, il, ir,
@@ -1010,9 +1074,18 @@ class GammaStream(_StreamBatcher):
         self._downloads = _Downloads(program.device)
         self._out_parts: list[np.ndarray] = []
         self._device_batches: list | None = [] if keep_device_limit > 0 else None
+        # the masked columns' survivors, read back with the last batches
+        self._survivors = None
+        masked = program.masked_jw_columns()
+        if masked:
+            slots = torch.zeros(len(masked), dtype=torch.int64, device=program.device)
+            self._survivors = program.survivors = SurvivorCounts(masked, slots)
 
     def _read(self, pairs) -> None:
         for dev, host in pairs:
+            if dev is None:  # the survivor counts
+                self._survivors.settle(host)
+                continue
             self._out_parts.append(host)
             if self._device_batches is not None:
                 self._device_batches.append(dev)
@@ -1026,8 +1099,19 @@ class GammaStream(_StreamBatcher):
         self._read(self._downloads.ready())
 
     def finish(self):
+        with span("finish", pairs=self.total):
+            return self._finish()
+
+    def _finish(self):
         self._flush_tail()
+        if self._survivors is not None:
+            # the counts join the drain, whose copies the host waits for
+            # anyway; the program stops counting
+            if self.program.survivors is self._survivors:
+                self.program.survivors = None
+            self._downloads.submit(self._survivors.slots, None)
         self._read(self._downloads.drain())
+        self._survivors = None
         host = np.empty((self.total, self.program.n_cols), np.int8)
         parts, self._out_parts = self._out_parts, []
         self._drain_parts(parts, host)
@@ -1080,7 +1164,9 @@ class PatternStream(_StreamBatcher):
         pids = np.empty(self.total, self.id_dtype)
         parts, self._parts = self._parts, []
         self._drain_parts(parts, pids)
-        return pids, self._counts[:-1].cpu().numpy()
+        counts = self._counts[:-1]
+        note_d2h(counts)
+        return pids, counts.cpu().numpy()
 
 
 def pattern_counts_from_gammas(G: np.ndarray, level_counts: list[int],

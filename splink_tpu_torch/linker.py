@@ -96,7 +96,7 @@ from .term_frequencies import (
     tf_fold_spec,
     tf_log_table,
 )
-from .utils.profiling import StageTimer, begin_run
+from .utils.profiling import StageTimer, begin_run, note_d2h, note_h2d, note_reads, note_sync
 
 logger = logging.getLogger("splink_tpu_torch")
 
@@ -128,7 +128,9 @@ def _gamma_histograms(settings, G, weights=None, chunk: int = 1 << 22,
         for c, col in enumerate(cols):
             levels = int(col["num_levels"])
             g = torch.clamp(G_dev[:, c].to(torch.int64) + 1, 0, levels)
+            note_reads(g, 2)  # torch.bincount's reads of the least and greatest level
             counts = torch.bincount(g, minlength=levels + 1)[: levels + 1]
+            note_d2h(counts)
             out[comparison_column_name(col)] = [int(v) for v in counts.cpu()]
         return out
     acc = [np.zeros(int(col["num_levels"]) + 1, np.float64) for col in cols]
@@ -240,6 +242,7 @@ class Splink:
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
+            note_sync(self.device)
             torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
@@ -497,7 +500,9 @@ class Splink:
     def _gamma_tensor(self, G: np.ndarray):
         if self._G_dev is not None and G is self._G:
             return self._G_dev
-        return torch.from_numpy(np.ascontiguousarray(G)).to(self.device)
+        out = torch.from_numpy(np.ascontiguousarray(G)).to(self.device)
+        note_h2d(out)
+        return out
 
     # ------------------------------------------------------------------
     # The pattern regime and device pair generation
@@ -969,7 +974,9 @@ class Splink:
 
     def _em_init(self):
         lam, m, u, _ = self.params.to_arrays()
-        return fsparams_from_numpy(lam, m, u, self.device, self._float_dtype)
+        init = fsparams_from_numpy(lam, m, u, self.device, self._float_dtype)
+        note_h2d(*init)
+        return init
 
     def _run_em(self, G: np.ndarray, compute_ll: bool) -> None:
         """Dispatch EM to the resident or streamed regime by pair count. A
@@ -1039,6 +1046,7 @@ class Splink:
             # inside the stage span, so em_begin takes it as the parent of
             # every em_iteration span
             if tel is not None:
+                note_d2h(*init)
                 tel.em_begin("fused", *(t.cpu().numpy() for t in init))
             if ckpt_dir is not None:
                 converged = self._run_em_fused_checkpointed(
@@ -1115,11 +1123,10 @@ class Splink:
     def _run_em_resident_weighted(self, G_pat: np.ndarray, weights: np.ndarray,
                                   compute_ll: bool) -> None:
         """Resident EM on a weighted pattern matrix (counts as weights)."""
-        self._run_em_fused(
-            torch.from_numpy(np.ascontiguousarray(G_pat)).to(self.device),
-            torch.from_numpy(weights.astype(self._np_float)).to(self.device),
-            compute_ll,
-        )
+        G_dev = torch.from_numpy(np.ascontiguousarray(G_pat)).to(self.device)
+        w_dev = torch.from_numpy(weights.astype(self._np_float)).to(self.device)
+        note_h2d(G_dev, w_dev)
+        self._run_em_fused(G_dev, w_dev, compute_ll)
 
     def _run_em_streamed(self, G: np.ndarray, compute_ll: bool) -> None:
         """Streaming EM over host gamma micro-batches of pair_batch_size

@@ -2,15 +2,22 @@
 
 Span tracer: nested run -> stage -> EM-iteration spans.
 
-Spans carry a monotonic [t0, t1) interval, a kind, parent linkage and free
-attributes, and are emitted to the run's event sink as ``type: "span"``
-events when they close. :func:`chrome_trace_from_events` converts a run's
-JSONL events into the Chrome trace-event format that ui.perfetto.dev and
-chrome://tracing load directly.
+Spans carry a [t0, t1) interval on the tracer's clock, a kind, parent
+linkage and free attributes, and are emitted to the run's event sink as
+``type: "span"`` events when they close. :func:`chrome_trace_from_events`
+converts a run's JSONL events into the Chrome trace-event format that
+ui.perfetto.dev and chrome://tracing load directly.
+
+The telemetry record's tracer keeps ``time.monotonic`` seconds. The
+in-memory run scopes of ``utils.profiling`` use the same class on
+``time.time_ns`` (``ticks_per_s=1e9``), the clock ``torch.profiler``
+stamps its events with, and tag each span with its run id.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from contextlib import contextmanager
 
@@ -18,66 +25,94 @@ from contextlib import contextmanager
 class Tracer:
     """Open/close nested spans; completed spans are kept in order.
 
-    The open-span stack is a plain list, not thread-local: the pipeline is
-    one host thread, and the EM host-callback thread never opens stage
-    spans (iteration spans record their parent explicitly — see
-    ``RunContext.em_begin``).
+    Each host thread has its own stack of open spans, so a span's parent
+    is the innermost span open on the thread that opened it (iteration
+    spans record their parent explicitly — see ``RunContext.em_begin``).
+    ``dur_s`` is ``(t1 - t0) / ticks_per_s`` unless :meth:`end` is given
+    the duration. With ``max_spans``, spans closing past that many are
+    counted in ``dropped`` and not kept.
     """
 
-    def __init__(self, clock=time.monotonic):
+    def __init__(self, clock=time.monotonic, ticks_per_s: float = 1.0,
+                 run_id: str | None = None, max_spans: int | None = None):
         self._clock = clock
-        self._next_id = 1
-        self._stack: list[dict] = []
+        self._ticks = ticks_per_s
+        self.run_id = run_id
+        self.max_spans = max_spans
+        self.dropped = 0
+        self._ids = itertools.count(1)
+        self._stacks: dict[int, list[dict]] = {}
         self.completed: list[dict] = []
 
+    def _stack(self) -> list[dict]:
+        return self._stacks.setdefault(threading.get_ident(), [])
+
+    def current(self) -> dict | None:
+        """The innermost open span of the calling thread."""
+        stack = self._stacks.get(threading.get_ident())
+        return stack[-1] if stack else None
+
     def current_id(self) -> int | None:
-        return self._stack[-1]["span_id"] if self._stack else None
+        span = self.current()
+        return span["span_id"] if span is not None else None
 
     def begin(self, name: str, kind: str = "stage", parent: int | None = None, **attrs) -> int:
         span = {
-            "span_id": self._next_id,
+            "span_id": next(self._ids),
             "parent_id": parent if parent is not None else self.current_id(),
             "name": name,
             "kind": kind,
             "t0": self._clock(),
             "attrs": dict(attrs),
         }
-        self._next_id += 1
-        self._stack.append(span)
+        if self.run_id is not None:
+            span["run"] = self.run_id
+        self._stack().append(span)
         return span["span_id"]
 
-    def end(self, span_id: int, **attrs) -> dict:
-        """Close ``span_id`` (and, defensively, anything opened after it
-        that was left dangling by an exception) and return the span dict."""
-        while self._stack:
-            span = self._stack.pop()
-            if span["span_id"] == span_id or not self._stack:
-                break
-        else:  # pragma: no cover - end() without begin()
-            span = {"span_id": span_id, "parent_id": None, "name": "?",
-                    "kind": "stage", "t0": self._clock(), "attrs": {}}
-        span["t1"] = self._clock()
-        span["dur_s"] = span["t1"] - span["t0"]
+    def end(self, span_id: int, dur_s: float | None = None, **attrs) -> dict:
+        """Close ``span_id`` (and, defensively, drop anything opened after
+        it that was left dangling by an exception) and return the span
+        dict. A span that is not open on this thread (closed already with
+        an enclosing one, or never begun) leaves the stack as it is."""
+        t1 = self._clock()
+        stack = self._stack()
+        k = next((k for k in range(len(stack) - 1, -1, -1)
+                  if stack[k]["span_id"] == span_id), None)
+        if k is None:
+            return {"span_id": span_id, "parent_id": None, "name": "?", "kind": "stage",
+                    "t0": t1, "t1": t1, "dur_s": 0.0, "attrs": dict(attrs)}
+        span = stack[k]
+        del stack[k:]
+        if not stack:
+            self._stacks.pop(threading.get_ident(), None)
+        span["t1"] = t1
+        span["dur_s"] = dur_s if dur_s is not None else (t1 - span["t0"]) / self._ticks
         span["attrs"].update(attrs)
-        self.completed.append(span)
+        self._keep(span)
         return span
+
+    def _keep(self, span: dict) -> None:
+        if self.max_spans is not None and len(self.completed) >= self.max_spans:
+            self.dropped += 1
+        else:
+            self.completed.append(span)
 
     def emit_closed(self, name: str, kind: str, t0: float, t1: float,
                     parent: int | None = None, **attrs) -> dict:
         """Record an already-timed interval as a span (used for EM
         iteration spans, whose boundaries are host-callback arrivals)."""
         span = {
-            "span_id": self._next_id,
+            "span_id": next(self._ids),
             "parent_id": parent,
             "name": name,
             "kind": kind,
             "t0": t0,
             "t1": t1,
-            "dur_s": t1 - t0,
+            "dur_s": (t1 - t0) / self._ticks,
             "attrs": dict(attrs),
         }
-        self._next_id += 1
-        self.completed.append(span)
+        self._keep(span)
         return span
 
     @contextmanager

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import note_h2d
+
 N_CLASSES = 32
 NIBBLE_CAP = 7
 OVERFLOW_BIT = np.uint32(1 << 31)
@@ -114,7 +116,10 @@ def jw_upper_bound(cnt1, pref1, cnt2, pref2, l1, l2,
     zero = torch.zeros((), dtype=f32, device=dev)
     l1f = torch.maximum(l1.to(f32), one)
     l2f = torch.maximum(l2.to(f32), one)
-    three = torch.tensor(3.0, dtype=f32, device=dev)  # a true division on CUDA too
+    # 0-d constants: a true division on CUDA too, and float32 compares
+    three, prefix, boost, two = (torch.tensor(v, dtype=f32, device=dev)
+                                 for v in (3.0, prefix_scale, boost_threshold, 2.0))
+    note_h2d(three, prefix, boost, two)
     jaro_ub = torch.where(m_ub > 0, (m_ub / l1f + m_ub / l2f + 1.0) / three, zero)
     d = (p1 ^ p2) & 0x7FFFFFFF
     # nested prefix flags: c1 implies c0 etc., so the run length is a sum
@@ -124,13 +129,7 @@ def jw_upper_bound(cnt1, pref1, cnt2, pref2, l1, l2,
         + (((d & 0xFFFFFF) == 0) & (la > 2)).to(torch.int32)
         + ((d == 0) & (la > 3)).to(torch.int32)
     )
-    scale = torch.minimum(
-        torch.tensor(prefix_scale, dtype=f32, device=dev),
-        1.0 / torch.maximum(lb.to(f32), one),
-    )
+    scale = torch.minimum(prefix, 1.0 / torch.maximum(lb.to(f32), one))
     boosted = jaro_ub + p4.to(f32) * scale * (1.0 - jaro_ub)
-    ub = torch.where(
-        jaro_ub < torch.tensor(boost_threshold, dtype=f32, device=dev),
-        jaro_ub, boosted,
-    )
-    return torch.where(p4 >= 4, torch.tensor(2.0, dtype=f32, device=dev), ub)
+    ub = torch.where(jaro_ub < boost, jaro_ub, boosted)
+    return torch.where(p4 >= 4, two, ub)

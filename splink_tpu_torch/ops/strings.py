@@ -199,14 +199,19 @@ def levenshtein_ratio_plain(s1, s2, l1, l2):
     return ratio_from_distance(levenshtein_plain(s1, s2, l1, l2), l1, l2)
 
 
-def jaro_winkler(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None):
+def jaro_winkler(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None,
+                 survivors=None):
     """Batched Jaro-Winkler, where(mask, jw, 0) when a (B,) bool ``mask`` is
     given: the CUDA kernel for tensors on a CUDA device, the plain version
-    for tensors on the CPU."""
+    for tensors on the CPU. With a mask, ``survivors`` (an int64 element on
+    the same device) has the mask's survivors added to it."""
     if s1.is_cuda:
         from .strings_cuda import jaro_winkler_cuda
 
-        return jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale, boost_threshold, mask)
+        return jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale, boost_threshold, mask,
+                                 survivors)
+    if survivors is not None:
+        survivors += mask.sum()
     return jaro_winkler_plain(s1, s2, l1, l2, prefix_scale, boost_threshold, mask)
 
 

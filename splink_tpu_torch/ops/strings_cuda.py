@@ -187,9 +187,9 @@ def _load(name: str):
                 lib = ctypes.CDLL(path)
                 fn = getattr(lib, f"splink_{kernel}")
                 fn.restype = i32
-                # jaro_winkler: prefix_scale, boost_threshold, mask; levenshtein:
-                # scratch; then out, stream
-                tail = [f32, f32, ptr] if kernel == "jaro_winkler" else [ptr]
+                # jaro_winkler: prefix_scale, boost_threshold, mask, survivors;
+                # levenshtein: scratch; then out, stream
+                tail = [f32, f32, ptr, ptr] if kernel == "jaro_winkler" else [ptr]
                 fn.argtypes = head + tail + [ptr, ptr]
                 _libs[kernel] = fn
         return _libs[name]
@@ -217,11 +217,13 @@ def _check(kernel, s1, s2, l1, l2) -> tuple[str, int]:
     return kernel_variant(kernel, s1.shape[1], s1.dtype)
 
 
-def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
+def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None, survivors=None):
     """Launch one kernel on the current stream into ``out``; counts it and
     raises if CUDA refused the launch. ``words`` overrides the variant
     (chip_smoke.py times other forms at a width that one covers: 0 the
-    generic form, -G the lane-group form with G lanes a pair)."""
+    generic form, -G the lane-group form with G lanes a pair). A masked
+    Jaro-Winkler launch adds its survivors to ``survivors``, an int64
+    element on the inputs' device, when given."""
     kind, chosen = _check(name, s1, s2, l1, l2)
     words = chosen if words is None else words
     B, width = s1.shape
@@ -229,6 +231,10 @@ def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
                              or mask.shape != (B,) or not mask.is_contiguous()):
         raise ValueError(f"mask must be a contiguous ({B},) bool tensor on {s1.device}, "
                          f"got {tuple(mask.shape)} {mask.dtype} on {mask.device}")
+    if survivors is not None and (mask is None or survivors.device != s1.device
+                                  or survivors.dtype != torch.int64 or survivors.numel() != 1):
+        raise ValueError("survivors must be one int64 element on the inputs' device, "
+                         "with a mask")
     fn = _load(name)
     if not B:
         return out
@@ -239,7 +245,8 @@ def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
         capture.setdefault(name, tensors)
         capture.setdefault(key, tensors)
     if name == "jaro_winkler":
-        extra = (*scalars, None if mask is None else mask.data_ptr())
+        extra = (*scalars, None if mask is None else mask.data_ptr(),
+                 None if survivors is None else survivors.data_ptr())
     else:  # Levenshtein's generic form takes 2 * ceil(width / 32) words a pair
         scratch = None
         if words == 0:
@@ -261,15 +268,17 @@ def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None):
     return out
 
 
-def jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None):
+def jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None,
+                      survivors=None):
     """Batched Jaro-Winkler on the card: s1, s2 (B, L) uint8 or uint32/int32
     codepoints, any L, l1, l2 (B,) int32 -> (B,) float32; with a (B,) bool
     ``mask``, where(mask, jw, 0) from one launch that computes only the
-    pairs the mask keeps. Replaces
+    pairs the mask keeps, adding their count to ``survivors`` (an int64
+    element on the card) when given. Replaces
     splink_tpu/ops/strings_pallas.py:jaro_winkler_pallas."""
     out = torch.empty(s1.shape[0], dtype=torch.float32, device=s1.device)
     return _launch("jaro_winkler", out, s1, s2, l1, l2, prefix_scale, boost_threshold,
-                   mask=mask)
+                   mask=mask, survivors=survivors)
 
 
 def levenshtein_cuda(s1, s2, l1, l2):

@@ -51,7 +51,8 @@ import torch
 from .blocking import _key_codes, _sort_groups, _split_join_keys, _uid_ranks
 from .compat_sql import parse_blocking_rule
 from .data import EncodedTable
-from .gammas import _D2H_DEPTH, _Downloads, gather_shard_ids, pattern_histogram
+from .gammas import _D2H_DEPTH, SurvivorCounts, _Downloads, gather_shard_ids, pattern_histogram
+from .utils.profiling import note_d2h, note_h2d, span
 
 # Unit extent bound, the reference's (tests shrink it to force multi-chunk
 # group splitting on tiny data).
@@ -106,8 +107,11 @@ class VirtualPlan:
         codes, uid codes, residual operands and each rule's unit tables."""
         key = str(device)
         if key not in self._device_arrays:
-            up = lambda a, dt=None: torch.from_numpy(np.ascontiguousarray(a)).to(  # noqa: E731
-                device=device, dtype=dt)
+            def up(a, dt=None):
+                out = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+                note_h2d(out)
+                return out
+
             self._device_arrays[key] = {
                 "codes": up(self.codes),
                 "uid": None if self.uid_codes is None else up(self.uid_codes),
@@ -1019,7 +1023,15 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
     if mesh is not None:
         batch_size = pad_to_multiple(batch_size, mesh.size)
     device = program.device
-    acc = torch.zeros(n_patterns + 1, dtype=torch.int64, device=device)
+    # the two-phase filter's survivors of each masked column (the mesh
+    # kernels run the exact body) add up in slots past the histogram's, so
+    # the pass's one read at its end brings them back
+    masked = program.masked_jw_columns() if mesh is None else []
+    acc = torch.zeros(n_patterns + 1 + len(masked), dtype=torch.int64, device=device)
+    hist_acc = acc[: n_patterns + 1]
+    survivors = None
+    if masked:
+        survivors = program.survivors = SurvivorCounts(masked, acc[n_patterns + 1:])
     downloads = _Downloads(device, _D2H_DEPTH) if want_ids else None
     try:
         out_pos = 0
@@ -1034,18 +1046,21 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
             fn = make_virtual_pattern_fn(program, plan, r, mesh)
             for p0 in range(0, rp.total, rule_bs):
                 p1 = min(p0 + rule_bs, rp.total)
-                if mesh is None:
-                    pid = fn(torch.arange(p0, p1, dtype=torch.int64, device=device))
-                    acc += pattern_histogram(pid, n_patterns + 1)
-                else:
-                    pid, hist = gather_shard_ids(
-                        [fn(torch.arange(lo, hi, dtype=torch.int64, device=mesh.devices[k]), k)
-                         for k, (lo, hi) in enumerate(shard_ranges(mesh, p0, p1, rule_bs))
-                         if hi > lo],
-                        n_patterns, device)
-                    acc += hist
+                with span("pattern_batch", rule=r, positions=p1 - p0):
+                    if mesh is None:
+                        pid = fn(torch.arange(p0, p1, dtype=torch.int64, device=device))
+                        hist_acc += pattern_histogram(pid, n_patterns + 1)
+                    else:
+                        pid, hist = gather_shard_ids(
+                            [fn(torch.arange(lo, hi, dtype=torch.int64,
+                                             device=mesh.devices[k]), k)
+                             for k, (lo, hi) in enumerate(shard_ranges(mesh, p0, p1, rule_bs))
+                             if hi > lo],
+                            n_patterns, device)
+                        hist_acc += hist
+                    if want_ids:
+                        downloads.submit(program.narrow_ids(pid), (r, p0, out_pos, p1 - p0))
                 if want_ids:
-                    downloads.submit(program.narrow_ids(pid), (r, p0, out_pos, p1 - p0))
                     for tag, arr in downloads.ready():
                         yield (*tag, arr)
                 else:
@@ -1054,8 +1069,15 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
         if want_ids:
             for tag, arr in downloads.drain():
                 yield (*tag, arr)
-        counts[:] += acc[:n_patterns].cpu().numpy()
+        with span("pass_readback", bytes=acc.numel() * acc.element_size()):
+            note_d2h(acc)
+            host = acc.cpu().numpy()
+            counts[:] += host[:n_patterns]
+            if survivors is not None:
+                survivors.settle(host[n_patterns + 1:])
     finally:
+        if survivors is not None and program.survivors is survivors:
+            program.survivors = None
         # the consumer may abandon the generator mid-stream: drop the copies
         # still in flight
         if downloads is not None:
