@@ -48,7 +48,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ._device import resolve_device
+from ._device import device_constant, resolve_device
 from .data import EncodedTable, phonetic_column_name
 from .ops import jw_bound
 from .ops import numeric as numeric_ops
@@ -68,6 +68,13 @@ DEFAULT_PAIR_BATCH = 1 << 20
 # Largest dense gamma-pattern space the pattern-id pipeline handles; beyond
 # this the linker streams sufficient statistics instead.
 MAX_PATTERNS = 1 << 22
+
+# The comparison kinds whose batch body on a card uploads nothing and reads
+# nothing back (the two-phase Jaro-Winkler's constants are made with the
+# program): the others upload 0-d constants per batch (numeric_perc,
+# dmetaphone, name_inversion, the q-gram kinds, case_sql) or run the caller's
+# code (custom)
+CAPTURABLE_KINDS = frozenset({"exact", "jaro_winkler", "levenshtein", "numeric_abs"})
 
 # Registry for custom comparisons: name -> callable(ctx, col_settings) -> gamma
 _CUSTOM_COMPARISONS: dict[str, callable] = {}
@@ -471,6 +478,16 @@ def _survivor_levels(pc: PairColumn, surv, thresholds, slot=None):
     return _survivor_levels_compacted(pc, surv, thresholds, slot)
 
 
+def _two_phase_constants(thresholds, device):
+    """(lowest, level) of a two-phase column, 0-d and shared
+    (``device_constant``): the float32 survivor threshold (the lowest
+    threshold less the bound's margin) and the int8 level of a token-equal
+    pair, the count of thresholds strictly below 1.0 (bucket_similarity is
+    strict, sim > t)."""
+    return (device_constant(min(thresholds) - jw_bound.BOUND_MARGIN, torch.float32, device),
+            device_constant(sum(1 for t in thresholds if 1.0 > t), GAMMA_DTYPE, device))
+
+
 def _jw_two_phase(pc: PairColumn, aux, thresholds, survivors=None, column: str = ""):
     """Two-phase Jaro-Winkler gamma (splink_tpu gammas._jw_two_phase): the
     sound upper bound excludes pairs below the lowest threshold, token-equal
@@ -479,19 +496,10 @@ def _jw_two_phase(pc: PairColumn, aux, thresholds, survivors=None, column: str =
     them for ``column``."""
     (cl, pl), (cr, pr) = aux
     ub = jw_bound.jw_upper_bound(cl, pl, cr, pr, pc.len_l, pc.len_r, 0.1, 0.7)
-    # torchlint: disable=JL003 (a 0-d constant: counted in gamma_batch's cuda allow_syncs)
-    lowest = torch.tensor(
-        min(thresholds) - jw_bound.BOUND_MARGIN, dtype=ub.dtype, device=ub.device
-    )
-    # bucket_similarity is strict (sim > t): a token-equal pair's level is
-    # the count of thresholds strictly below 1.0
-    equal_level = sum(1 for t in thresholds if 1.0 > t)
+    lowest, level = _two_phase_constants(thresholds, ub.device)
     equal = (pc.tok_l == pc.tok_r) & (pc.len_l > 0)
     surv = (ub >= lowest) & ~equal & ~pc.null
     slot = survivors.slot(column, surv.numel()) if survivors is not None else None
-    # torchlint: disable=JL003 (a 0-d level constant: counted in gamma_batch's cuda allow_syncs)
-    level = torch.tensor(equal_level, dtype=GAMMA_DTYPE, device=ub.device)
-    note_h2d(lowest, level)
     lvl = torch.where(equal, level, _survivor_levels(pc, surv, thresholds, slot))
     return apply_null(lvl, pc.null)
 
@@ -818,6 +826,11 @@ class GammaProgram:
                 if self.n_patterns <= MAX_PATTERNS else None
             )
             note_h2d(self._packed, self._strides_dev)
+            # the two-phase columns' constants, made here once so that no
+            # batch uploads one
+            for _, thresholds in self._two_phase_columns():
+                jw_bound.bound_constants(self.device)
+                _two_phase_constants(thresholds, self.device)
         self._mesh_kernels: dict = {}
         # the SurvivorCounts of the pass running now, when it counts them
         self.survivors: SurvivorCounts | None = None
@@ -836,9 +849,9 @@ class GammaProgram:
         )
         return torch.stack([_spec_gamma(c, ctx, two_phase) for c in self._cols], dim=1)
 
-    def masked_jw_columns(self) -> list[str]:
-        """The columns whose Jaro-Winkler runs two-phase in
-        :meth:`gamma_batch`, in the order a batch takes them."""
+    def _two_phase_columns(self) -> list[tuple[str, tuple]]:
+        """(column, thresholds) of each column whose Jaro-Winkler runs
+        two-phase in :meth:`gamma_batch`, in the order a batch takes them."""
         if not self.two_phase:
             return []
         out = []
@@ -847,8 +860,21 @@ class GammaProgram:
             name = _comparison_input_column(c)
             if (spec["kind"] == "jaro_winkler" and spec.get("thresholds")
                     and _jw_key(name) in self._layout):
-                out.append(name)
+                out.append((name, tuple(spec["thresholds"])))
         return out
+
+    def masked_jw_columns(self) -> list[str]:
+        """The columns whose Jaro-Winkler runs two-phase in
+        :meth:`gamma_batch`, in the order a batch takes them."""
+        return [name for name, _ in self._two_phase_columns()]
+
+    @property
+    def capturable(self) -> bool:
+        """True when a batch of :meth:`gamma_batch` on a card makes the host
+        wait for nothing (no upload, no read back), so that a CUDA graph can
+        capture it: every comparison is of a kind in
+        :data:`CAPTURABLE_KINDS`."""
+        return all(c["comparison"]["kind"] in CAPTURABLE_KINDS for c in self._cols)
 
     def _pattern_batch_for_mesh(self, mesh):
         """The per-shard pattern kernel of a mesh pass: fn(k, il, ir,

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.profiling import note_h2d
+from .._device import device_constant
 
 N_CLASSES = 32
 NIBBLE_CAP = 7
@@ -93,6 +93,16 @@ def _nibble_min_sum(x, y):
     return ((s + (s >> 16)) & 0xFF).to(torch.int32)
 
 
+def bound_constants(device, prefix_scale=0.1, boost_threshold=0.7):
+    """The bound's constants 3, ``prefix_scale``, ``boost_threshold`` and 2
+    as 0-d float32 tensors on ``device``, shared (``device_constant``): a
+    0-d tensor keeps the division by 3 a true division on CUDA (a Python
+    divisor becomes a multiply by its reciprocal there) and the compares in
+    float32."""
+    return tuple(device_constant(v, torch.float32, device)
+                 for v in (3.0, prefix_scale, boost_threshold, 2.0))
+
+
 def jw_upper_bound(cnt1, pref1, cnt2, pref2, l1, l2,
                    prefix_scale=0.1, boost_threshold=0.7):
     """(b,) float32 >= the exact jaro_winkler of each pair; 2.0 where the
@@ -116,10 +126,7 @@ def jw_upper_bound(cnt1, pref1, cnt2, pref2, l1, l2,
     zero = torch.zeros((), dtype=f32, device=dev)
     l1f = torch.maximum(l1.to(f32), one)
     l2f = torch.maximum(l2.to(f32), one)
-    # 0-d constants: a true division on CUDA too, and float32 compares
-    three, prefix, boost, two = (torch.tensor(v, dtype=f32, device=dev)
-                                 for v in (3.0, prefix_scale, boost_threshold, 2.0))
-    note_h2d(three, prefix, boost, two)
+    three, prefix, boost, two = bound_constants(dev, prefix_scale, boost_threshold)
     jaro_ub = torch.where(m_ub > 0, (m_ub / l1f + m_ub / l2f + 1.0) / three, zero)
     d = (p1 ^ p2) & 0x7FFFFFFF
     # nested prefix flags: c1 implies c0 etc., so the run length is a sum

@@ -35,6 +35,7 @@ bool mask; anything else raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -266,6 +267,36 @@ def _launch(name, out, s1, s2, l1, l2, *scalars, mask=None, words=None, survivor
     launches[name] += 1
     variant_launches[key] = variant_launches.get(key, 0) + 1
     return out
+
+
+def add_launches(held: dict) -> None:
+    """Count the launches ``held`` (variant key -> n, as
+    :func:`held_launches` gathers them) in ``launches`` and
+    ``variant_launches``: a CUDA graph's replay runs them."""
+    for key, n in held.items():
+        launches[key.split("/", 1)[0]] += n
+        variant_launches[key] = variant_launches.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def held_launches():
+    """The launches counted inside the block are taken back out of
+    ``launches`` and ``variant_launches`` at its end and gathered in the
+    yielded dict (variant key -> n): a CUDA graph's capture runs no kernel,
+    and each replay counts them (:func:`add_launches`)."""
+    before = dict(variant_launches)
+    held: dict = {}
+    try:
+        yield held
+    finally:
+        for key, n in list(variant_launches.items()):
+            if n != before.get(key, 0):
+                held[key] = n - before.get(key, 0)
+                launches[key.split("/", 1)[0]] -= held[key]
+                if key in before:
+                    variant_launches[key] = before[key]
+                else:
+                    del variant_launches[key]
 
 
 def jaro_winkler_cuda(s1, s2, l1, l2, prefix_scale=0.1, boost_threshold=0.7, mask=None,

@@ -52,7 +52,8 @@ from .blocking import _key_codes, _sort_groups, _split_join_keys, _uid_ranks
 from .compat_sql import parse_blocking_rule
 from .data import EncodedTable
 from .gammas import _D2H_DEPTH, SurvivorCounts, _Downloads, gather_shard_ids, pattern_histogram
-from .utils.profiling import note_d2h, note_h2d, span
+from .ops import strings_cuda
+from .utils.profiling import count, count_each, held_counts, note_d2h, note_h2d, span
 
 # Unit extent bound, the reference's (tests shrink it to force multi-chunk
 # group splitting on tiny data).
@@ -993,6 +994,114 @@ def make_virtual_pattern_fn(program, plan: VirtualPlan, rule: int, mesh=None):
     return fn
 
 
+class _RuleBatches:
+    """The batches of one rule of a single-device pass, each over static
+    inputs: the positions are ``base[:n] + p0`` (``base`` an arange of the
+    rule's batch size made once, ``p0`` a one-element int64 tensor set
+    before each batch by a stream-ordered ``fill_``, never read back), and
+    the histogram adds in place to the pass's accumulator ``hist``. On the
+    CPU that is ``torch.bincount``; on a card (:meth:`_card_histogram`),
+    where bincount reads the ids' least and greatest value back (a wait
+    each), an ``index_add_`` of ones into ``lanes`` copies of the histogram,
+    position k adding to copy k mod ``lanes``, summed into ``hist`` at the
+    batch's end: most pairs share one pattern, and one copy would take
+    their atomic adds to one address one after another. Integer sums are
+    exact in any order.
+
+    On a card, where the gamma program is ``capturable``, a rule of three
+    batches or more replays its full batches as one CUDA graph: the first
+    runs eagerly (the warm-up), the second is captured and replayed, and
+    every later one is replayed; the tail batch runs eagerly. A replay
+    counts what its capture counted (kernel launches, ``jw_pairs``), the
+    capture nothing, since no kernel runs then. :meth:`close` releases the
+    graph and its memory pool."""
+
+    def __init__(self, program, plan: VirtualPlan, rule: int, size: int, hist, want_ids: bool):
+        self.fn = make_virtual_pattern_fn(program, plan, rule)
+        self.program, self.hist, self.want_ids, self.size = program, hist, want_ids, size
+        dev = hist.device
+        self.base = torch.arange(size, dtype=torch.int64, device=dev)
+        self.p0 = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.ones = None
+        if dev.type == "cuda":
+            self._card_histogram()
+        self.graphed = (dev.type == "cuda" and program.capturable
+                        and plan.rules[rule].total > 2 * size)
+        self._full = 0  # full batches run so far
+        self._graph = self._out = None
+        self._counts = self._launches = None  # what a replay counts
+
+    def _card_histogram(self, most_bins: int = 1 << 22) -> None:
+        """The card's histogram: as many copies as keep them within
+        ``most_bins`` bins, at most 32; position k's id offset to copy k mod
+        their count (int32: the offsets stay below 2**31)."""
+        bins = self.hist.numel()
+        copies = max(1, min(32, most_bins // bins))
+        dev = self.hist.device
+        self.ones = torch.ones(self.size, dtype=torch.int64, device=dev)
+        self.lanes = torch.zeros((copies, bins), dtype=torch.int64, device=dev)
+        self.lane_offset = (torch.arange(self.size, dtype=torch.int32, device=dev)
+                            % copies) * bins
+
+    def _body(self, n: int):
+        pid = self.fn(self.base[:n] + self.p0)
+        if self.ones is not None:
+            self.lanes.view(-1).index_add_(0, pid + self.lane_offset[:n], self.ones[:n])
+            self.hist += self.lanes.sum(0)
+            self.lanes.zero_()
+        else:
+            self.hist += pattern_histogram(pid, self.hist.numel())
+        return self.program.narrow_ids(pid) if self.want_ids else None
+
+    def run(self, p0: int, n: int, sp: dict):
+        """Run the batch of the ``n`` positions from ``p0``, recording how
+        (``eager``, ``capture``, ``replay``) as the span ``sp``'s ``graph``
+        attribute; its ids (narrowed) where the pass wants them."""
+        self.p0.fill_(p0)
+        mode = "eager"
+        if self.graphed and n == self.size:
+            self._full += 1
+            if self._full == 2:
+                self._capture()
+                mode = "capture"
+            elif self._full > 2:
+                mode = "replay"
+        sp["attrs"]["graph"] = mode
+        if mode == "eager":
+            return self._body(n)
+        self._graph.replay()
+        count_each(self._counts)
+        strings_cuda.add_launches(self._launches)
+        count("pattern_graph_replays")
+        # the graph's output is overwritten by the next replay: copy it in
+        # stream order first
+        return self._out.clone() if self.want_ids else None
+
+    def _capture(self) -> None:
+        dev = self.hist.device
+        graph = torch.cuda.CUDAGraph()
+        with (held_counts() as counts, strings_cuda.held_launches() as launches,
+              torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev))):
+            # thread_local: the program's other threads may use the card
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = self._body(self.size)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the body's own error is the one to raise
+                raise
+            graph.capture_end()
+        self._graph, self._out, self._counts, self._launches = graph, out, counts, launches
+        count("pattern_graph_captures")
+
+    def close(self) -> None:
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = self._out = None
+
+
 def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
                        want_ids: bool = True, counts_out=None):
     """Drive one device pass over the virtual pair stream, yielding
@@ -1005,7 +1114,11 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
     stream a few batches deep; without it ``pid_host`` is None and no
     per-pair bytes leave the device. The histogram accumulates on the
     device in int64 and is added to ``counts_out`` (int64, n_patterns;
-    the caller owns it) once, at the end of the pass.
+    the caller owns it) once, at the end of the pass. On one device a
+    rule's batches run over static inputs, and on a card its full batches
+    replay one CUDA graph (:class:`_RuleBatches`): no batch makes the host
+    wait. Each batch has one ``pattern_batch`` span, whose ``graph``
+    attribute says how it ran, and counts ``pattern_batches``.
 
     With ``mesh`` both batch sizes pad to a mesh multiple and each batch
     splits into the mesh's equal pieces of positions, piece k decoded and
@@ -1033,6 +1146,7 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
     if masked:
         survivors = program.survivors = SurvivorCounts(masked, acc[n_patterns + 1:])
     downloads = _Downloads(device, _D2H_DEPTH) if want_ids else None
+    batches = None
     try:
         out_pos = 0
         for r, rp in enumerate(plan.rules):
@@ -1041,16 +1155,19 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
             # clamp the batch to this RULE's total (power-of-two bucket): a
             # small rule must not run a full pair_batch_size of positions
             rule_bs = min(batch_size, 1 << max(int(rp.total - 1).bit_length(), 6))
-            if mesh is not None:
+            if mesh is None:
+                batches = _RuleBatches(program, plan, r, rule_bs, hist_acc, want_ids)
+            else:
                 rule_bs = pad_to_multiple(rule_bs, mesh.size)
-            fn = make_virtual_pattern_fn(program, plan, r, mesh)
+                fn = make_virtual_pattern_fn(program, plan, r, mesh)
             for p0 in range(0, rp.total, rule_bs):
                 p1 = min(p0 + rule_bs, rp.total)
-                with span("pattern_batch", rule=r, positions=p1 - p0):
+                with span("pattern_batch", rule=r, positions=p1 - p0) as sp:
+                    count("pattern_batches")
                     if mesh is None:
-                        pid = fn(torch.arange(p0, p1, dtype=torch.int64, device=device))
-                        hist_acc += pattern_histogram(pid, n_patterns + 1)
+                        ids = batches.run(p0, p1 - p0, sp)
                     else:
+                        sp["attrs"]["graph"] = "eager"
                         pid, hist = gather_shard_ids(
                             [fn(torch.arange(lo, hi, dtype=torch.int64,
                                              device=mesh.devices[k]), k)
@@ -1058,14 +1175,17 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
                              if hi > lo],
                             n_patterns, device)
                         hist_acc += hist
+                        ids = program.narrow_ids(pid) if want_ids else None
                     if want_ids:
-                        downloads.submit(program.narrow_ids(pid), (r, p0, out_pos, p1 - p0))
+                        downloads.submit(ids, (r, p0, out_pos, p1 - p0))
                 if want_ids:
                     for tag, arr in downloads.ready():
                         yield (*tag, arr)
                 else:
                     yield r, p0, out_pos, p1 - p0, None
                 out_pos += p1 - p0
+            if batches is not None:
+                batches.close()
         if want_ids:
             for tag, arr in downloads.drain():
                 yield (*tag, arr)
@@ -1076,6 +1196,8 @@ def _virtual_pass_iter(program, plan: VirtualPlan, batch_size: int, mesh=None,
             if survivors is not None:
                 survivors.settle(host[n_patterns + 1:])
     finally:
+        if batches is not None:
+            batches.close()
         if survivors is not None and program.survivors is survivors:
             program.survivors = None
         # the consumer may abandon the generator mid-stream: drop the copies

@@ -27,6 +27,9 @@ span, in the run of the innermost open StageTimer (else the current run);
 CUDA tensor (and nothing on the CPU): ``host_syncs``, ``h2d_copies``,
 ``h2d_bytes``, ``h2d_pageable_bytes``, ``d2h_copies`` and ``d2h_bytes``.
 Read them with :func:`run_ids`, :func:`run_spans` and :func:`run_counters`.
+Inside :func:`held_counts` (a CUDA graph's capture, which runs nothing) a
+thread's counts are gathered aside, and :func:`count_each` adds them at each
+replay.
 """
 
 from __future__ import annotations
@@ -335,7 +338,30 @@ def count(name: str, n: int = 1) -> None:
     _add(((name, n),))
 
 
+def count_each(counts: dict) -> None:
+    """Add each of ``counts`` (name -> n) as :func:`count` does."""
+    _add(counts.items())
+
+
+@contextlib.contextmanager
+def held_counts():
+    """Counts made on this thread inside the block go into the yielded dict
+    (name -> n) instead of the run's counters and spans: a CUDA graph's
+    capture runs nothing, and each replay counts them (:func:`count_each`)."""
+    outer = getattr(_ACTIVE, "held", None)
+    held = _ACTIVE.held = {}
+    try:
+        yield held
+    finally:
+        _ACTIVE.held = outer
+
+
 def _add(items) -> None:
+    held = getattr(_ACTIVE, "held", None)
+    if held is not None:
+        for name, n in items:
+            held[name] = held.get(name, 0) + n
+        return
     tracer, counters = _scope(_span_run())
     top = tracer.current()
     with _COUNT_LOCK:  # threads may count into one run (the default scope)

@@ -223,3 +223,45 @@ def test_jw_upper_bound_equal():
     ).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got == 2.0).any() and (got < 0.7).any()
+
+
+def _per_call_constant(value, dtype, device):
+    """The form the shared constants replaced: a new tensor at every call."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def test_shared_constants_equal_the_per_call_form(frame, pairs, monkeypatch):
+    """The Jaro-Winkler bound and the two-phase levels from the shared 0-d
+    constants equal, bit for bit, those from a new tensor made at every
+    call; the cache holds one entry per device and value, made with the
+    program, and batches add none."""
+    from splink_tpu_torch import _device
+
+    prog, got = _port_G(frame, pairs)
+    assert prog.two_phase
+    cpu = torch.device("cpu")
+    held = dict(_device._CONSTANTS)
+    margin = jw_bound.BOUND_MARGIN
+    made = [(torch.float32, v) for v in (3.0, 0.1, 0.7, 2.0, 0.88 - margin, 0.7 - margin,
+                                         0.9 - margin)]
+    made += [(torch.int8, v) for v in (2, 3, 1)]  # the token-equal levels
+    for dtype, value in made:
+        assert _device.device_constant(value, dtype, "cpu") is held[(cpu, dtype, value)]
+    assert _device.device_constant(2, torch.float32, cpu) is held[(cpu, torch.float32, 2.0)]
+    again = prog.compute(*pairs, batch_size=1024)
+    assert _device._CONSTANTS == held
+    np.testing.assert_array_equal(again, got)
+
+    rng = np.random.default_rng(77)
+    words = ["".join(rng.choice(list("abcxyz"), rng.integers(0, 12))) for _ in range(300)]
+    col = data.encode_string_column(words, width=16)
+    cnt, pref = jw_bound.jw_bound_row_aux(col.bytes_, col.lengths, np.arange(len(words)))
+    il, ir = rng.integers(0, len(words), 3000), rng.integers(0, len(words), 3000)
+    as_i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))  # noqa: E731
+    args = (as_i32(cnt[il]), as_i32(pref[il, 0]), as_i32(cnt[ir]), as_i32(pref[ir, 0]),
+            torch.from_numpy(col.lengths[il]), torch.from_numpy(col.lengths[ir]))
+    shared = jw_bound.jw_upper_bound(*args)
+    monkeypatch.setattr(jw_bound, "device_constant", _per_call_constant)
+    monkeypatch.setattr(gammas, "device_constant", _per_call_constant)
+    assert torch.equal(jw_bound.jw_upper_bound(*args), shared)
+    np.testing.assert_array_equal(prog.compute(*pairs, batch_size=1024), got)

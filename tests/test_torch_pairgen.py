@@ -211,21 +211,55 @@ def _names_df(n, seed):
                          "city": rng.choice([f"c{k}" for k in range(8)], n)})
 
 
-@pytest.mark.parametrize("case", ["two_phase", "exact_jw", "duplicate_uids"])
+def _static_batches_equal_host_decode(program, plan, size=32):
+    """Each rule's first, middle and tail batch through the pass's
+    static-shape body (positions ``base + p0``, the histogram added into a
+    fixed accumulator, by ``torch.bincount`` as on the CPU and by the card's
+    ``index_add_`` of ones into copies): its ids and histogram equal the
+    gamma program's over the host decode's pairs and mask
+    (:func:`pairgen.decode_positions`)."""
+    for r, rp in enumerate(plan.rules):
+        assert rp.total > 2 * size and rp.total % size
+        hist = torch.zeros(program.n_patterns + 1, dtype=torch.int64)
+        cpu_form = pairgen._RuleBatches(program, plan, r, size, hist, want_ids=True)
+        card_form = pairgen._RuleBatches(program, plan, r, size, hist, want_ids=True)
+        card_form._card_histogram(most_bins=4 * hist.numel())  # 4 copies
+        for p0 in (0, rp.total // size // 2 * size, rp.total // size * size):
+            n = min(size, rp.total - p0)
+            i, j, masked = pairgen.decode_positions(plan, r, np.arange(p0, p0 + n))
+            want = program.pattern_ids(
+                program.gamma_batch(torch.from_numpy(i).long(), torch.from_numpy(j).long()),
+                torch.from_numpy(masked))
+            for batches in (cpu_form, card_form):
+                hist.zero_()
+                span = {"attrs": {}}
+                ids = batches.run(p0, n, span)
+                assert span["attrs"]["graph"] == "eager"
+                np.testing.assert_array_equal(ids.numpy(), program.narrow_ids(want).numpy())
+                np.testing.assert_array_equal(
+                    hist.numpy(), np.bincount(want.numpy(), minlength=program.n_patterns + 1))
+        assert card_form.lanes.shape == (4, hist.numel()) and not card_form.lanes.any()
+
+
+@pytest.mark.parametrize("case", ["two_phase", "exact_jw", "duplicate_uids", "link_only",
+                                  "link_and_dedupe"])
 def test_virtual_pattern_ids_equal_reference(case):
     """compute_virtual_pattern_ids of both packages: the per-position ids
     (sentinel included: residual, earlier-rule and duplicate-uid masks) and
-    the histogram equal, exactly; and the port's ids of the unmasked
-    positions equal its materialised pattern pass over the host-decoded
-    pairs (the reference's own oracle)."""
-    raw = _gamma_raw(["l.city = r.city and l.name != 'ann'", "l.dob = r.dob"],
+    the histogram equal, exactly; the port's ids of the unmasked positions
+    equal its materialised pattern pass over the host-decoded pairs (the
+    reference's own oracle); and batch by batch, the pass's static-shape
+    body gives the host decode's ids and counts."""
+    link_type = case if case.startswith("link") else "dedupe_only"
+    raw = _gamma_raw(["l.city = r.city and l.name != 'ann'", "l.dob = r.dob"], link_type,
                      two_phase_jw="off" if case == "exact_jw" else "on")
     df = _names_df(240, 3)
     if case == "duplicate_uids":
         df["unique_id"] = np.arange(240) // 3
-    s, t, rs, rt, _ = _tables(raw, (df,))
-    plan = pairgen.build_virtual_plan(s, t, chunk=8)
-    ref = ref_pairgen.build_virtual_plan(rs, rt, chunk=8)
+    frames = (df,) if link_type == "dedupe_only" else _split(df, 140, shift=70)
+    s, t, rs, rt, n_left = _tables(raw, frames)
+    plan = pairgen.build_virtual_plan(s, t, n_left, chunk=8)
+    ref = ref_pairgen.build_virtual_plan(rs, rt, n_left, chunk=8)
     program = GammaProgram(s, t, device="cpu")
     ref_program = RefGammaProgram(rs, rt)
     assert program.n_patterns == ref_program.n_patterns == 48
@@ -247,6 +281,7 @@ def test_virtual_pattern_ids_equal_reference(case):
     none, counts2, _ = pairgen.compute_virtual_pattern_ids(program, plan, 128, return_ids=False)
     assert none is None
     np.testing.assert_array_equal(counts2, counts)
+    _static_batches_equal_host_decode(program, plan)
 
 
 def test_unsupported_shapes_fall_back():

@@ -178,6 +178,66 @@ def test_one_pattern_batch_span_per_batch(virtual_job):
     assert readback["counts"]["jw_survivors"] == counters["jw_survivors"]
 
 
+def test_pattern_batches_say_how_they_ran(virtual_job):
+    """Every batch counts ``pattern_batches`` and records how it ran: on
+    the CPU eagerly, with no graph captured or replayed."""
+    _, spans, counters = virtual_job
+    batches = [sp for sp in spans if sp["name"] == "pattern_batch"]
+    assert {sp["attrs"]["graph"] for sp in batches} == {"eager"}
+    assert counters["pattern_batches"] == len(batches)
+    assert "pattern_graph_captures" not in counters
+    assert "pattern_graph_replays" not in counters
+
+
+def test_held_counts_are_counted_by_each_replay():
+    """Counts made inside ``held_counts`` (a graph's capture) reach neither
+    the counters nor the span; ``count_each`` adds them (a replay)."""
+    run = profiling.begin_run("tracing-held")
+    try:
+        with profiling.span("batch") as batch:
+            profiling.count("jw_pairs", 1)
+            with profiling.held_counts() as held:
+                profiling.count("jw_pairs", 4)
+                profiling.count("jw_pairs.first_name", 4)
+                with profiling.held_counts() as inner:
+                    profiling.count("jw_pairs", 2)
+                profiling.count("jw_pairs", 1)
+            assert held == {"jw_pairs": 5, "jw_pairs.first_name": 4}
+            assert inner == {"jw_pairs": 2}
+            assert profiling.run_counters(run) == {"jw_pairs": 1}
+            profiling.count_each(held)
+            profiling.count_each(held)
+        assert profiling.run_counters(run) == {"jw_pairs": 11, "jw_pairs.first_name": 8}
+        assert batch["counts"] == {"jw_pairs": 11, "jw_pairs.first_name": 8}
+    finally:
+        profiling.discard_run(run)
+
+
+def test_held_launches_are_taken_back_and_added_by_each_replay(monkeypatch):
+    """Kernel launches counted inside ``held_launches`` (a graph's capture)
+    are taken back out of both launch counts; ``add_launches`` counts them
+    again (a replay)."""
+    from splink_tpu_torch.ops import strings_cuda
+
+    monkeypatch.setattr(strings_cuda, "launches", {"jaro_winkler": 3, "levenshtein": 1})
+    monkeypatch.setattr(strings_cuda, "variant_launches",
+                        {"jaro_winkler/u8/w1/masked": 3, "levenshtein/u8/w1": 1})
+    with strings_cuda.held_launches() as held:
+        strings_cuda.launches["jaro_winkler"] += 2
+        strings_cuda.variant_launches["jaro_winkler/u8/w1/masked"] += 2
+        strings_cuda.launches["levenshtein"] += 1
+        strings_cuda.variant_launches["levenshtein/u8/w2"] = 1
+    assert held == {"jaro_winkler/u8/w1/masked": 2, "levenshtein/u8/w2": 1}
+    assert strings_cuda.launches == {"jaro_winkler": 3, "levenshtein": 1}
+    assert strings_cuda.variant_launches == {"jaro_winkler/u8/w1/masked": 3,
+                                             "levenshtein/u8/w1": 1}
+    for _ in range(2):
+        strings_cuda.add_launches(held)
+    assert strings_cuda.launches == {"jaro_winkler": 7, "levenshtein": 3}
+    assert strings_cuda.variant_launches == {"jaro_winkler/u8/w1/masked": 7,
+                                             "levenshtein/u8/w1": 1, "levenshtein/u8/w2": 2}
+
+
 def test_survivors_count_the_masked_columns(virtual_job):
     lk, _, counters = virtual_job
     n = lk._virtual.n_candidates
